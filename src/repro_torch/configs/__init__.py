@@ -1,0 +1,37 @@
+"""Architecture registry of the port: ``--arch <id>`` → ``ArchSpec``.
+
+Each config module defines ``FULL`` (the published numbers) and
+``SMOKE`` (a reduced same-family config for CPU tests), as in
+``repro.configs``; the port's registry starts with the LM archs whose
+serving path is ported."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List
+
+__all__ = ["ArchSpec", "get_arch", "list_archs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                  # lm
+    full: Any
+    smoke: Any
+    source: str = ""
+
+
+def _registry() -> Dict[str, ArchSpec]:
+    from repro_torch.configs import deepseek_7b, phi3_medium_14b
+    return {s.arch_id: s for s in (deepseek_7b.SPEC, phi3_medium_14b.SPEC)}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    reg = _registry()
+    if arch_id not in reg:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(reg)}")
+    return reg[arch_id]
+
+
+def list_archs() -> List[str]:
+    return sorted(_registry())

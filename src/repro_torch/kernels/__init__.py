@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch
+versions (``csrc/`` holds the CUDA sources)."""

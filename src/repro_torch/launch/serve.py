@@ -1,0 +1,108 @@
+"""Serving launcher of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+        --collaborative --cut auto --bandwidth 250
+
+Cloud-only mode runs the batched engine over a paged fp KV cache (the
+port's stand-in for the reference's dense cache, which the JAX suite
+shows it equals); ``--collaborative`` splits the stack at the
+(auto-tuned or given) block and runs the paper's INT8-edge / fp-cloud
+pipeline over a simulated wireless channel.  Runs on the CUDA card
+unless ``--device cpu`` is given.  Weights are random, from a seeded
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core.autotune import AutoTuner
+from repro_torch.core.costmodel import (CLOUD_TITANXP_CLASS, Channel,
+                                        EDGE_TX2_CLASS)
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import LMConfig, init_lm, make_graph
+from repro_torch.serve.engine import CollaborativeServingEngine, ServingEngine
+
+
+def auto_cut(cfg: LMConfig, channel: Channel, prompt_len: int):
+    """Algorithm 1 over the LM's block-boundary candidates → (point, cut
+    layer), exactly as the reference launcher derives it."""
+    graph = make_graph(cfg, batch=1, seq=prompt_len)
+    best, _ = AutoTuner(graph, EDGE_TX2_CLASS, CLOUD_TITANXP_CLASS).tune(
+        channel)
+    cut = (int(best.point.split("/")[0][3:])
+           if best.point.startswith("blk") else 0)
+    return best.point, cut
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--collaborative", action="store_true")
+    ap.add_argument("--cut", default="auto")
+    ap.add_argument("--bandwidth", type=float, default=250.0,
+                    help="wireless KB/s for the collaborative channel")
+    ap.add_argument("--rtt", type=float, default=20.0,
+                    help="wireless round-trip time in ms")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the engines run (default: the CUDA card)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    spec = get_arch(args.arch)
+    cfg = spec.smoke if args.smoke else spec.full
+    print(f"serving {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
+          f"vocab={cfg.vocab} on {dev}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_lm(cfg, gen, device=dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, args.prompt_len).astype(np.int32)
+               for _ in range(args.requests)]
+    max_len = args.prompt_len + args.max_new + 24
+
+    if not args.collaborative:
+        eng = ServingEngine(params, cfg, max_batch=4, max_len=max_len,
+                            device=dev)
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=args.max_new)
+        dt = time.perf_counter() - t0
+        print(f"cloud-only (paged fp KV): {args.requests} reqs x "
+              f"{args.max_new} tokens in {dt:.2f}s "
+              f"({eng.stats.decode_steps} decode steps)")
+        print("first output:", outs[0])
+        return
+
+    channel = Channel.from_kbps(args.bandwidth, rtt_ms=args.rtt)
+    if args.cut == "auto":
+        point, cut_layer = auto_cut(cfg, channel, args.prompt_len)
+        print(f"auto-tuned cut (Algorithm 1): {point} "
+              f"-> edge blocks 0..{cut_layer}")
+    else:
+        cut_layer = int(args.cut)
+    eng = CollaborativeServingEngine(params, cfg, cut_layer=cut_layer,
+                                     channel=channel, max_len=max_len,
+                                     device=dev)
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=args.max_new)
+    dt = time.perf_counter() - t0
+    print(f"collaborative: {dt:.2f}s, int8 wire bytes "
+          f"{eng.stats.transmitted_bytes / 1e3:.1f}KB "
+          f"({eng.stats.prefill_bytes / 1e3:.1f}KB prefill + "
+          f"{eng.stats.bytes_per_decode_token():.0f} B/token incremental "
+          f"decode), simulated channel "
+          f"time {eng.stats.channel_latency_s:.2f}s")
+    print("first output:", outs[0])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,168 @@
+"""Collaborative (cloud-edge) LM serving — the paper's mode — in PyTorch.
+
+Counterpart of ``repro.serve.engine.CollaborativeServingEngine`` at a
+fixed cut with ``spec_k=1`` and greedy decode.  The INT8 edge prefix
+(the first ``cut_layer + 1`` blocks on the fake-quant lattice) and the
+fp cloud suffix each own a paged KV cache covering only their block
+sub-range, over **one shared block table**.  Each prefill ships the
+prompt's per-row Eq.(1) boundary blob uplink; each decode step ships a
+per-row-quantized ``[B, 1, D]`` boundary delta uplink and the greedy
+token downlink, charged to ``ServeStats`` byte for byte as the JAX
+engine charges them.  ``a_bits=None`` with fp pages on both sides is
+the lossless configuration, whose greedy stream does not depend on the
+cut.
+
+Options the slice does not run raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import tree_map
+from repro_torch.core.costmodel import Channel
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as ML
+from repro_torch.models import transformer as TF
+from repro_torch.serve.cloud import ServingEngine
+from repro_torch.serve.kvcache import _PagedPool
+from repro_torch.serve.phases import _SplitPhases
+from repro_torch.serve.policy import _CutBank
+from repro_torch.serve.scheduler import _SlotEngine
+from repro_torch.serve.transport import Transport
+
+Params = Any
+
+__all__ = ["ServingEngine", "CollaborativeServingEngine"]
+
+
+def _unported(option: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"CollaborativeServingEngine({option}) is not ported yet "
+        f"(ROADMAP {item})")
+
+
+class CollaborativeServingEngine(_SplitPhases, _SlotEngine):
+    """Paper mode with incremental decode over split, shared-table paged
+    KV caches (see the module docstring) on ``device`` (default
+    ``"cuda"``)."""
+
+    def __init__(self, params: Params, cfg: TF.LMConfig, *, cut_layer: int,
+                 channel: Optional[Channel] = None, max_len: int = 128,
+                 a_bits: Optional[int] = 8, max_batch: int = 4,
+                 edge_paged: bool = True, edge_int8: bool = True,
+                 cloud_paged: bool = True, cloud_int8: bool = True,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 spec_k: int = 1, policy=None, demand_paged: bool = False,
+                 pressure=None, admission=None, mesh=None,
+                 device: DeviceLike = None):
+        dev = resolve_device(device)
+        if spec_k != 1:
+            raise _unported(f"spec_k={spec_k!r}", "A9")
+        for name, value, item in (("policy", policy, "A12"),
+                                  ("demand_paged", demand_paged, "A12"),
+                                  ("pressure", pressure, "A12"),
+                                  ("admission", admission, "A12"),
+                                  ("mesh", mesh, "A16")):
+            if value:
+                raise _unported(f"{name}=...", item)
+        if not (edge_paged and cloud_paged):
+            raise _unported("edge_paged/cloud_paged=False", "A5")
+        if not 0 <= cut_layer < cfg.n_layers:
+            raise ValueError(
+                f"cut_layer {cut_layer} outside [0, {cfg.n_layers})")
+        super().__init__(cfg, max_batch=max_batch, max_len=max_len,
+                         device=dev)
+        self.transport = Transport(channel)
+        self.a_bits = a_bits
+        self.edge_int8 = edge_int8
+        self.cloud_int8 = cloud_int8
+        self.page_size = page_size
+
+        params = tree_map(lambda t: t.to(dev), params)
+        self.embed = params["embed"]
+        self.tail = {"final_norm": params["final_norm"],
+                     "lm_head": params["lm_head"]}
+        # act_axis=0: per-slot activation ranges — a shared-batch range
+        # would couple each request's Eq.(1) lattice to its neighbours'
+        # (and to stale values in idle slots)
+        self._edge_qctx = None if a_bits is None else \
+            ML.QuantCtx(a_bits=a_bits, quantize_weights=False, act_axis=0)
+        deploy_qctx = None if a_bits is None else ML.QuantCtx(a_bits=a_bits)
+        # one shared page pool / block table for both split caches
+        self._pool = _PagedPool.build(max_batch, max_len, page_size,
+                                      num_pages, dev)
+        self._bank = _CutBank(params, cfg, {cut_layer}, deploy_qctx)
+        self._set_cut(cut_layer)
+
+    def _set_cut(self, cut: int) -> None:
+        """Partition at ``cut``: weights come out of the bank (views) and
+        the split caches are allocated for the two layer sub-ranges."""
+        cfg = self.cfg
+        self.cut = cut
+        self.n_edge = cut + 1
+        self.n_cloud = cfg.n_layers - self.n_edge
+        self.edge_blocks, self.cloud_blocks = self._bank.get(cut)
+        n_pool = self._pool.allocator.num_pages
+        self._edge_cache = TF.init_cache(
+            cfg, self.max_batch, self.max_len, layers=self.n_edge,
+            paged=True, quantized=self.edge_int8, page_size=self.page_size,
+            num_pages=n_pool, device=self.device)
+        self._cloud_cache = TF.init_cache(
+            cfg, self.max_batch, self.max_len, layers=self.n_cloud,
+            paged=True, quantized=self.cloud_int8, page_size=self.page_size,
+            num_pages=n_pool, device=self.device)
+
+    def _admit_reserve(self, max_news: np.ndarray) -> np.ndarray:
+        """Positions past the prompt that admission reserves pages for:
+        the whole generation budget (no speculative headroom at k=1)."""
+        return max_news
+
+    # -- scheduler hooks ----------------------------------------------------
+    def _admit(self, toks, plens, max_news, slots, cur, pos):
+        bt_rows = self._pool.admit(slots, plens,
+                                   self._admit_reserve(max_news),
+                                   toks.shape[1])
+        slots_d = torch.as_tensor(slots, device=self.device).long()
+        plens_d = torch.as_tensor(plens, device=self.device)
+        blob, qp = self._edge_prefill(self.edge_blocks, self.embed, toks,
+                                      self._edge_cache, slots_d, bt_rows,
+                                      plens_d)
+        self.transport.account_blob(
+            self.stats, blob, phase="prefill",
+            row_elems=plens.astype(np.int64) * self.cfg.d_model)
+        cur, pos = self._cloud_prefill(self.cloud_blocks, self.tail, blob,
+                                       qp, self._cloud_cache, slots_d,
+                                       bt_rows, cur, pos, plens_d)
+        self.transport.account_downlink(self.stats, toks.shape[0],
+                                        phase="prefill")
+        return cur, pos
+
+    def _decode_all(self, cur, pos, n_active):
+        bt = self._pool.table_dev()
+        blob, qp = self._edge_decode(self.edge_blocks, self.embed, cur,
+                                     self._edge_cache, pos, bt)
+        self.transport.account_blob(self.stats, blob, phase="decode",
+                                    rows=n_active)
+        cur, pos = self._cloud_decode(self.cloud_blocks, self.tail, blob, qp,
+                                      self._cloud_cache, pos, bt)
+        self.transport.account_downlink(self.stats, n_active)
+        return cur, pos
+
+    def _retire(self, slot):
+        self._pool.retire(slot)
+
+    def _can_admit(self, group_shapes, plen, max_new, bucket):
+        shapes = [(p, int(self._admit_reserve(np.int64(m))))
+                  for p, m in group_shapes + [(plen, max_new)]]
+        return self._pool.can_admit(shapes, bucket)
+
+    def edge_cache_bytes(self, *, live_only: bool = False) -> int:
+        """Edge KV footprint; ``live_only`` counts allocated pages only."""
+        if live_only:
+            return self._pool.live_cache_bytes(self._edge_cache)
+        return sum(v.numel() * v.element_size()
+                   for v in self._edge_cache.values())

@@ -1,0 +1,182 @@
+"""Channel framing, wire accounting, and link telemetry for serving.
+
+Counterpart of ``repro.serve.transport`` (the ``Transport`` and
+``LinkTelemetry`` the slice needs; ``ReliableTransport`` and
+``DriftingChannel`` come with the robustness slice).  The framing
+constants come from ``core.costmodel`` so the engine's accounting and
+the cost model's predictions cannot drift apart, and every byte charged
+equals the JAX engine's: ``transmitted_bytes`` is the total over the
+wire — prefill and decode uplinks plus every cloud→edge downlink, each
+message carrying its ``_MSG_BYTES`` header; prefill uplinks are charged
+by each request's *true* prompt length (bucket padding never crosses
+the wire); ``decode_tokens`` counts committed tokens.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.costmodel import (Channel, MSG_BYTES, QP_BYTES,
+                                        TOK_BYTES)
+from repro_torch.serve.stats import ServeStats
+
+__all__ = ["ServeStats", "Transport", "LinkTelemetry", "_MSG_BYTES",
+           "_QP_BYTES", "_TOK_BYTES"]
+
+# wire framing overhead for one quantized blob: f32 scale + f32 zero-point
+_QP_BYTES = int(QP_BYTES)
+# wire bytes for one token id (cloud→edge return / edge→cloud draft)
+_TOK_BYTES = int(TOK_BYTES)
+# per-*message* protocol framing, paid once per channel traversal
+_MSG_BYTES = int(MSG_BYTES)
+
+
+class LinkTelemetry:
+    """Online estimates of the link, from the traffic the engine sends
+    anyway (the draft-acceptance and loss estimates of the reference
+    come with the speculative and reliability slices).
+
+    Every charged message is an ``(nbytes, seconds)`` sample of
+    ``seconds = nbytes / bandwidth + rtt`` — a line in ``nbytes`` — so
+    an exponentially-weighted least-squares fit over the message stream
+    recovers ``1/bandwidth`` (slope) and ``rtt`` (intercept).  Message
+    sizes naturally span two orders of magnitude (prefill blobs vs
+    per-round deltas vs 4 B token returns), which is what makes the
+    regression well-conditioned; when recent traffic degenerates to one
+    size the last well-conditioned estimate is held.  EWMA weighting
+    makes the estimate track channel drift with a ~``1/alpha``-message
+    memory.
+    """
+
+    # no physical last hop beats ~1 TB/s: a degenerate sample pair can
+    # otherwise drive the fitted slope to ~0 and the bandwidth estimate
+    # to absurdity (see observe_transfer's guard)
+    BW_CEILING_BYTES_PER_S = 1e12
+
+    def __init__(self, alpha: float = 0.25, min_samples: int = 4):
+        self.alpha = alpha
+        self.min_samples = min_samples
+        self.n_samples = 0
+        self._mx = self._my = self._mxx = self._mxy = 0.0
+        self._bw: Optional[float] = None
+        self._rtt: Optional[float] = None
+
+    # -- observations -------------------------------------------------------
+    def observe_transfer(self, nbytes: float, seconds: float) -> None:
+        x, y = float(nbytes), float(seconds)
+        # zero-duration samples carry no line information (the idealized
+        # infinite channel) and, mixed with real samples, can drag the
+        # fitted slope through zero — absurd bandwidth estimates
+        if x <= 0 or y <= 0:
+            return
+        if self.n_samples == 0:
+            self._mx, self._my = x, y
+            self._mxx, self._mxy = x * x, x * y
+        else:
+            a = self.alpha
+            self._mx += a * (x - self._mx)
+            self._my += a * (y - self._my)
+            self._mxx += a * (x * x - self._mxx)
+            self._mxy += a * (x * y - self._mxy)
+        self.n_samples += 1
+        var = self._mxx - self._mx * self._mx
+        cov = self._mxy - self._mx * self._my
+        # refresh the held estimate only while the fit is well-conditioned
+        if self.n_samples >= self.min_samples \
+                and var > 1e-9 * max(self._mx * self._mx, 1.0) and cov > 0:
+            slope = cov / var                       # seconds per byte
+            self._bw = min(1.0 / slope, self.BW_CEILING_BYTES_PER_S)
+            self._rtt = max(0.0, self._my - slope * self._mx)
+
+    # -- estimates ----------------------------------------------------------
+    @property
+    def bandwidth_bytes_per_s(self) -> Optional[float]:
+        return self._bw
+
+    @property
+    def rtt_s(self) -> Optional[float]:
+        return self._rtt
+
+    def channel(self, fallback: Channel) -> Channel:
+        """The estimated channel, or ``fallback`` until the regression
+        has locked on."""
+        if self._bw is None:
+            return fallback
+        return Channel(bandwidth_bytes_per_s=self._bw,
+                       rtt_s=self._rtt or 0.0, name="telemetry")
+
+
+class Transport:
+    """The collaborative engine's side of the wire: owns the channel and
+    the telemetry, charges every message to a ``ServeStats``.
+
+    ``stats`` is passed per call (not owned) so callers can swap in a
+    fresh ``ServeStats`` between measurement windows without severing
+    the telemetry, which deliberately accumulates across windows — it is
+    an estimate of the *link*, not of any one run."""
+
+    def __init__(self, channel: Optional[Channel] = None,
+                 telemetry: Optional[LinkTelemetry] = None):
+        self.channel = channel or Channel(bandwidth_bytes_per_s=float("inf"))
+        self.telemetry = telemetry or LinkTelemetry()
+
+    def _transfer(self, stats: ServeStats, nbytes: int) -> float:
+        """Move one message across the channel; returns the seconds the
+        sender spent on it.  Every ``charge``/``account_*`` path goes
+        through here, so a reliable transport is a subclass swap, not an
+        engine change."""
+        t = self.channel.transfer_time(nbytes)
+        self.telemetry.observe_transfer(nbytes, t)
+        return t
+
+    def charge(self, stats: ServeStats, nbytes: int, *,
+               phase: str) -> None:
+        """One uplink message of ``nbytes`` (header included by caller
+        or via the ``account_*`` wrappers)."""
+        t = self._transfer(stats, nbytes)
+        stats.transmitted_bytes += int(nbytes)
+        stats.channel_latency_s += t
+        if phase == "prefill":
+            stats.prefill_bytes += int(nbytes)
+        else:
+            stats.decode_bytes += int(nbytes)
+            stats.decode_bytes_log.append(int(nbytes))
+
+    def account_blob(self, stats: ServeStats, blob: torch.Tensor, *,
+                     phase: str, rows: Optional[int] = None,
+                     row_elems=None) -> None:
+        """Charge the wire for the occupied batch rows of ``blob``.
+
+        The decode step always computes the full fixed-shape
+        [max_batch, 1, D] delta, but idle slots would never be sent, so
+        the simulated wire carries only the active rows — each framed
+        with its own Eq.(1) scale/zero-point (per-row quantization).
+        ``row_elems`` overrides the per-row payload element count: the
+        prefill blob is bucket-padded on device, but only each request's
+        true prompt activations cross the wire."""
+        itemsize = blob.element_size()
+        if row_elems is not None:
+            nbytes = int(sum(int(e) * itemsize + _QP_BYTES
+                             for e in row_elems))
+        else:
+            n_rows = blob.shape[0] if rows is None else rows
+            per_row = (blob.numel() // blob.shape[0]) * itemsize
+            nbytes = n_rows * (per_row + _QP_BYTES)
+        self.charge(stats, nbytes + _MSG_BYTES, phase=phase)
+
+    def account_downlink(self, stats: ServeStats, n_rows: int, *,
+                         phase: str = "decode") -> None:
+        """The cloud→edge return: the greedy token per live request (the
+        speculative accept mask comes with ``spec_k > 1``).  The edge
+        can't start the next step until it arrives, so every step pays
+        this second transfer and its channel RTT.  Counted in
+        ``transmitted_bytes``/``downlink_bytes``, never in the uplink
+        ``decode_bytes`` split."""
+        nbytes = n_rows * _TOK_BYTES + _MSG_BYTES
+        t = self._transfer(stats, nbytes)
+        stats.transmitted_bytes += nbytes
+        stats.channel_latency_s += t
+        stats.downlink_bytes += nbytes
+        if phase == "decode":
+            stats.decode_downlink_bytes += nbytes
