@@ -6,20 +6,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. ``device``     — the card's name and power limit.
 2. ``build``      — compile every hand-written CUDA kernel from
-                    ``src/repro_torch/kernels/csrc``.
+                    ``src/repro_torch/kernels/csrc``, one ``nvcc`` per
+                    source, all started together.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
-                    card, at the shapes the main path gives it: error,
-                    kernel / plain times and the roofline bound.
-4. ``main_path``  — ``CollaborativeServingEngine`` on deepseek-7b at full
+                    card: ``paged_flash_mq`` at the shapes the main path
+                    gives it (decode, prefill, speculative verify), the
+                    fused ``int8_matmul`` at deepseek-7b's edge GEMM
+                    shapes; error, kernel / plain times and the roofline
+                    bound.
+4. ``quantized_dense`` — the INT8 GEMM's front door at full width on the
+                    main path's own activations and layer-0 weights,
+                    against its plain version and the f32 product.
+5. ``main_path``  — ``CollaborativeServingEngine`` on deepseek-7b at full
                     width and depth (bf16, random seeded weights), INT8
                     paged KV on both sides of cut 14, timed in turns with
                     the cloud-only ``ServingEngine`` on the same weights;
                     every kernel's launch count on each run is checked.
                     Then one ``torch.profiler`` window of each engine on
                     the same traffic, after all the timed runs.
-5. ``path_parity``— the lossless engine at full width, 2 layers, f32, on
-                    the card and on the CPU: the greedy streams must match
-                    (or, at a near-tie, the teacher-forced logits).
+6. ``spec_path``  — the same engine, weights and traffic with speculative
+                    draft/verify rounds (``spec_k=4``), full width and
+                    depth: tokens/s, rounds, acceptance, wire bytes, and
+                    the launch count the rounds imply; then one
+                    ``torch.profiler`` window of its traffic.
+7. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
+                    on the card and on the CPU: lossless serial and
+                    speculative streams must match the CPU's serial one
+                    (or, at a near-tie, the teacher-forced logits); in
+                    the INT8 default the ``spec_k=4`` stream must equal
+                    the serial one on each device, and the card's
+                    decisions the CPU's up to a tie.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
@@ -44,11 +60,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS = 67e12                  # H100 SXM f32 peak outside tensor cores
+INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 KERNEL_TOL = 1e-4                  # |kernel - plain| / max|plain|
+INT8_RTOL, INT8_ATOL = 1e-5, 1e-4  # the JAX suite's f32 epilogue tolerance
+
+
+_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script began
+    (where the time limit goes)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}),
+          flush=True)
 
 
 def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
@@ -121,10 +146,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     sources = sorted(p.stem for p in _build._CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    logs = {name: _build.build(name) for name in sources}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
     secs = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -229,6 +256,12 @@ def phase_kernels() -> list:
             f"deepseek7b_prefill_{tag}", b=4, s=128, n_heads=32, n_kv=32,
             hd=128, page=16, lengths=[128, 100, 128, 77], q_start=[0] * 4,
             page_dtype=dt, scales=sc, seed=2, copies=8))
+    # speculative verify: k = 4 queries per row at lengths - 4
+    lengths_ver = [164, 100, 131, 36]
+    cases.append(_paged_case(
+        "deepseek7b_verify_int8", b=4, s=4, n_heads=32, n_kv=32, hd=128,
+        page=16, lengths=lengths_ver, q_start=[n - 4 for n in lengths_ver],
+        page_dtype=torch.int8, scales=True, seed=5, copies=24))
     cases.append(_paged_case(
         "phi3_medium_gqa_decode_int8", b=4, s=1, n_heads=40, n_kv=10,
         hd=128, page=16, lengths=lengths_dec,
@@ -296,8 +329,225 @@ def phase_kernels() -> list:
     return results
 
 
+def _int8_case(name, m, k, n, *, seed, act=None, bias=False,
+               requant=False, identity=False):
+    """Random int8 operands at one GEMM shape: per-channel weight scales
+    and non-zero zero points on both sides (unit scales and zero zero
+    points for ``identity``), and enough distinct B copies that timed
+    launches stream B from device memory, not from the 50 MB L2."""
+    from repro_torch.core.quant import QuantParams
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = max(2, math.ceil(150e6 / (k * n)))
+
+    def ints(shape):
+        return torch.randint(-128, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    if identity:
+        qa = qb = QuantParams(scale=torch.tensor(1.0, device="cuda"),
+                              zero_point=torch.tensor(0.0, device="cuda"))
+    else:
+        qa = QuantParams(scale=torch.tensor(0.02, device="cuda"),
+                         zero_point=torch.tensor(3.0, device="cuda"))
+        qb = QuantParams(
+            scale=torch.rand((n,), generator=g, device="cuda") * 1e-3 + 1e-4,
+            zero_point=torch.randint(-6, 7, (n,), generator=g,
+                                     device="cuda").float(), axis=1)
+    return dict(name=name, a=ints((m, k)), bs=[ints((k, n))
+                                              for _ in range(copies)],
+                qa=qa, qb=qb, act=act, requant=requant, identity=identity,
+                bias=(torch.randn((n,), generator=g, device="cuda")
+                      if bias else None))
+
+
+def phase_int8_kernels() -> list:
+    """``int8_matmul`` against its plain version at deepseek-7b's edge
+    GEMM shapes: M = 4 (one decode step of 4 slots) and M = 512 (one
+    prefill of 4 x 128), (K, N) the attention projections, gate/up and
+    down; then one case each for bias + silu, gelu, requant to int8 after
+    relu and after bias + gelu, and the identity epilogue, which must be
+    exact."""
+    from repro_torch.core.quant import compute_qparams
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import ops, ref
+    cases = [_int8_case(f"int8mm_m{m}_{k}x{n}", m, k, n, seed=10 + i)
+             for i, (m, (k, n)) in enumerate(
+                 (m, kn) for m in (4, 512)
+                 for kn in ((4096, 4096), (4096, 11008), (11008, 4096)))]
+    cases += [
+        _int8_case("int8mm_m512_4096x11008_bias_silu", 512, 4096, 11008,
+                   seed=20, act="silu", bias=True),
+        _int8_case("int8mm_m4_4096x11008_gelu", 4, 4096, 11008, seed=21,
+                   act="gelu"),
+        _int8_case("int8mm_m512_11008x4096_requant_int8", 512, 11008, 4096,
+                   seed=22, act="relu", requant=True),
+        _int8_case("int8mm_m512_4096x4096_bias_gelu_requant_int8", 512, 4096,
+                   4096, seed=24, act="gelu", bias=True, requant=True),
+        _int8_case("int8mm_m512_1024x4096_identity", 512, 1024, 4096,
+                   seed=23, identity=True),
+    ]
+    results = []
+    for c in cases:
+        a, b0, qa, qb = c["a"], c["bs"][0], c["qa"], c["qb"]
+        m, k = a.shape
+        n = b0.shape[1]
+        kw = dict(bias=c["bias"], act=c["act"])
+        if c["requant"]:
+            kw["out_qp"] = compute_qparams(ref.int8_matmul_ref(a, b0, qa, qb,
+                                                               **kw))
+        launches0 = IK.int8_matmul_cuda.launches
+        out = ops.int8_matmul(a, b0, qa, qb, **kw)
+        torch.cuda.synchronize()
+        if IK.int8_matmul_cuda.launches != launches0 + 1:
+            raise AssertionError(f"{c['name']}: the front door did not "
+                                 f"launch the kernel exactly once")
+        plain = ref.int8_matmul_ref(a, b0, qa, qb, **kw)
+        if out.dtype != plain.dtype or out.shape != plain.shape:
+            raise AssertionError(f"{c['name']}: {out.dtype} {out.shape} vs "
+                                 f"plain {plain.dtype} {plain.shape}")
+        diff = (out.double() - plain.double()).abs()
+        err = float(diff.max())
+        if c["identity"]:
+            tol, ok = 0.0, bool(torch.equal(out, plain))
+        elif c["requant"]:
+            frac = float((diff > 0).double().mean())
+            tol, ok = 1.0, err <= 1.0 and frac < 0.01
+        else:
+            bound = INT8_ATOL + INT8_RTOL * plain.double().abs()
+            tol = float(bound.max())
+            ok = bool((diff <= bound).all()) and math.isfinite(err)
+        if not ok:
+            raise AssertionError(f"{c['name']}: kernel vs plain max abs "
+                                 f"err {err} > tol {tol}")
+        it = iter(range(10 ** 9))
+        nb = len(c["bs"])
+
+        def run_kernel():
+            ops.int8_matmul(a, c["bs"][next(it) % nb], qa, qb, **kw)
+
+        def run_plain():
+            ref.int8_matmul_ref(a, c["bs"][next(it) % nb], qa, qb, **kw)
+
+        # torch._int_mm (cuBLASLt s8 x s8 -> s32, no epilogue) as a
+        # yardstick: it needs more than 16 rows, so M = 4 is padded to 32
+        a_mm = a if m > 16 else torch.cat(
+            [a, torch.zeros((32 - m, k), dtype=torch.int8, device="cuda")])
+
+        def run_int_mm():
+            return torch._int_mm(a_mm, c["bs"][next(it) % nb])
+
+        if c["identity"]:
+            acc = run_int_mm()[:m].float()
+            if not torch.equal(out, acc):
+                raise AssertionError(f"{c['name']}: identity epilogue "
+                                     f"differs from torch._int_mm")
+        plain_ms = graph_ms(run_plain, iters=5)
+        kernel_ms = graph_ms(run_kernel)
+        kernel_call_ms = cuda_ms(run_kernel)
+        kernel_ms = min(kernel_ms, graph_ms(run_kernel))
+        plain_ms = min(plain_ms, graph_ms(run_plain, iters=5))
+        int_mm_ms = graph_ms(run_int_mm)
+        nbytes = (m * k + k * n + m * n * out.element_size()
+                  + 4 * n * (3 if c["bias"] is not None else 2))
+        ops_n = 2 * m * k * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_n / INT8_OPS * 1e3
+        r = dict(kernel="int8_matmul", shape=c["name"], m=m, k=k, n=n,
+                 act=c["act"], bias=c["bias"] is not None,
+                 out_dtype=str(out.dtype), max_abs_err=err, tol=tol,
+                 kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=nbytes, ops=ops_n, library_ms=None,
+                 int_mm_ms=int_mm_ms,
+                 int_mm_rows=a_mm.shape[0], b_copies=nb)
+        emit("kernels", **r)
+        results.append(r)
+        del c["bs"]
+    torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path at full width
+# Phase 4: the INT8 GEMM's front door at full width
+# ---------------------------------------------------------------------------
+
+
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.norm(a.double() - b.double())
+                 / torch.linalg.norm(b.double()))
+
+
+def phase_quantized_dense(params, cfg) -> dict:
+    """The INT8 GEMM's front door at full width: the main path's prompts
+    (4 x 128 rows) embedded and rmsnormed, through layer 0's ``wq``,
+    gate/up ``wi`` and down ``wo`` (the SwiGLU product of the f32 path as
+    its input) of the seeded deepseek-7b, each quantized per channel.
+    Held against the plain version, and against the f32 product within
+    the noise the two INT8 lattices predict: rounding x and w to steps
+    dx and dw[j] adds (M dx^2 |w|^2 + |x|^2 sum_j dw[j]^2) / 12 to the
+    squared error of x @ w."""
+    import torch.nn.functional as F
+    from repro_torch.core.quant import compute_qparams, quantize
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as ML
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks = params["blocks"]
+    toks = torch.tensor(np.stack(_prompts(8, 128, cfg.vocab, seed=0)[:4]),
+                        device="cuda")
+    x = ML.rmsnorm({"scale": blocks["ln1"]["scale"][0]},
+                   ML.embed(params["embed"], toks)).float()
+    x = x.reshape(-1, cfg.d_model)
+    wq, wi, wg, wo = (blocks["attn"]["wq"]["w"][0].float(),
+                      blocks["mlp"]["wi"]["w"][0].float(),
+                      blocks["mlp"]["wg"]["w"][0].float(),
+                      blocks["mlp"]["wo"]["w"][0].float())
+    hidden = (x @ wi) * F.silu(x @ wg)
+    rows = []
+    for name, inp, w in (("wq", x, wq), ("w1_gate_up", x, wi),
+                         ("w2_down", hidden, wo)):
+        qx, qw = compute_qparams(inp), compute_qparams(w, axis=1)
+        w_q = quantize(w, qw)
+        launches0 = IK.int8_matmul_cuda.launches
+        got = ops.quantized_dense(inp, w_q, qx, qw)
+        torch.cuda.synchronize()
+        launches = IK.int8_matmul_cuda.launches - launches0
+        want = ref.quantized_dense_ref(inp, w_q, qx, qw)
+        truth = inp @ w
+        diff = (got - want).abs()
+        bound = INT8_ATOL + INT8_RTOL * want.abs()
+        rel = _rel_l2(got, truth)
+        noise = float(torch.sqrt(
+            (inp.shape[0] * qx.scale.double() ** 2 * (w.double() ** 2).sum()
+             + (inp.double() ** 2).sum() * (qw.scale.double() ** 2).sum())
+            / 12) / torch.linalg.norm(truth.double()))
+        r = dict(weight=name, x=list(inp.shape), w=list(w.shape),
+                 launches=launches, max_abs_err_vs_plain=float(diff.max()),
+                 tol_vs_plain=float(bound.max()),
+                 rel_l2_vs_f32=rel, predicted_rel_l2=noise,
+                 plain_rel_l2_vs_f32=_rel_l2(want, truth),
+                 within_1pct=rel < 0.01)
+        if launches != 1:
+            raise AssertionError(f"quantized_dense {name}: {launches} "
+                                 f"launches, expected 1")
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"quantized_dense {name}: kernel vs plain "
+                                 f"max abs err {float(diff.max())}")
+        if not rel <= 1.1 * noise:
+            raise AssertionError(f"quantized_dense {name}: rel L2 {rel} vs "
+                                 f"f32 above 1.1 x the lattice noise {noise}")
+        rows.append(r)
+    res = dict(arch=cfg.name, layer=0, rows=rows)
+    emit("quantized_dense", **res)
+    del blocks, x, hidden, wq, wi, wg, wo
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the main path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -310,7 +560,12 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
     stream, so the sum is the device's busy time.  The idle share is
     taken against ``unprofiled_wall_s``, the wall time of the same
     traffic without the profiler, whose own host work would add idle
-    time; the profiled window's wall time is reported beside it."""
+    time; the profiled window's wall time is reported beside it.
+
+    The device events are summed straight from the profiler's raw
+    results: ``key_averages()`` first builds the whole CPU operator
+    tree in Python, and with it a window took 90–265 s on the H100
+    machine's host at these event counts — most of the script's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -320,9 +575,13 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e3
+            acc[1] += 1
+    rows = [(us, k, c) for k, (us, c) in by_name.items()]
     busy_us = sum(r[0] for r in rows)
     attn_us = sum(r[0] for r in rows if "paged_flash_mq" in r[1])
     rows.sort(reverse=True)
@@ -343,17 +602,42 @@ def _prompts(n, plen, vocab, seed):
     return [rng.randint(0, vocab, plen).astype(np.int32) for _ in range(n)]
 
 
-def phase_main_path() -> dict:
-    from repro_torch.configs import get_arch
+def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
+    """One run of ``prompts`` through engine ``e``: the kernels' launch
+    counts are set to 0 just before and read just after, and
+    ``paged_flash_mq``'s must equal ``expect(stats)``, the count the
+    engine's code implies."""
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import paged_attention as PA
+    e.stats = type(e.stats)()
+    PA.paged_flash_mq.launches = 0
+    IK.int8_matmul_cuda.launches = 0
+    t0 = time.perf_counter()
+    outs = e.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.paged_flash_mq.launches
+    st = e.stats
+    if launches != expect(st):
+        raise AssertionError(f"{what}: paged_flash_mq launched {launches} "
+                             f"times, expected {expect(st)} "
+                             f"({st.prefill_calls} prefills, "
+                             f"{st.decode_steps} decode steps)")
+    if not all(len(o) == max_new and all(0 <= t < vocab for t in o)
+               for o in outs):
+        raise AssertionError(f"{what} produced malformed streams")
+    return dict(outs=outs, wall=wall, launches=launches,
+                int8_matmul_launches=IK.int8_matmul_cuda.launches, stats=st)
+
+
+def phase_main_path(params, cfg) -> dict:
     from repro_torch.core.autotune import AutoTuner
     from repro_torch.core.costmodel import (CLOUD_TITANXP_CLASS, Channel,
                                             EDGE_TX2_CLASS)
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.models.transformer import init_lm, make_graph
+    from repro_torch.models.transformer import make_graph
     from repro_torch.serve.engine import (CollaborativeServingEngine,
                                           ServingEngine)
 
-    cfg = get_arch("deepseek-7b").full
     n_req, plen, max_new, cut, reps = 8, 128, 32, 14, 3
     channel = Channel.from_kbps(250.0, rtt_ms=20.0)
     best, _ = AutoTuner(make_graph(cfg, batch=1, seq=plen), EDGE_TX2_CLASS,
@@ -363,8 +647,6 @@ def phase_main_path() -> dict:
                       "pick": best.point}), flush=True)
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_lm(cfg, gen, device="cuda")
     max_len = plen + max_new + 24
     eng = CollaborativeServingEngine(params, cfg, cut_layer=cut,
                                      channel=channel, max_len=max_len,
@@ -378,24 +660,11 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
 
     def timed(e):
-        """One run of the main path's traffic; the kernel's launch count
-        is set to 0 just before and read just after."""
-        e.stats = type(e.stats)()
-        PA.paged_flash_mq.launches = 0
-        t0 = time.perf_counter()
-        outs = e.generate(prompts, max_new_tokens=max_new)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = PA.paged_flash_mq.launches
-        st = e.stats
-        expect = cfg.n_layers * (st.prefill_calls + st.decode_steps)
-        if launches != expect:
-            raise AssertionError(f"paged_flash_mq launched {launches} times "
-                                 f"on the main path, expected {expect}")
-        if not all(len(o) == max_new and all(0 <= t < cfg.vocab for t in o)
-                   for o in outs):
-            raise AssertionError("main path produced malformed streams")
-        return dict(outs=outs, wall=wall, launches=launches, stats=st)
+        # every layer attends once per prefill call and once per step
+        return _timed(e, prompts, max_new, cfg.vocab,
+                      lambda st: cfg.n_layers * (st.prefill_calls
+                                                 + st.decode_steps),
+                      "main path")
 
     # collaborative and cloud-only in turns, so a slow stretch of the
     # host shows in both and in the spread of the repeats
@@ -423,6 +692,7 @@ def phase_main_path() -> dict:
                launches=first["launches"],
                expected_launches=cfg.n_layers * (st.prefill_calls
                                                  + st.decode_steps),
+               int8_matmul_launches=first["int8_matmul_launches"],
                transmitted_bytes=st.transmitted_bytes,
                prefill_bytes=st.prefill_bytes,
                bytes_per_decode_token=st.bytes_per_decode_token(),
@@ -445,15 +715,106 @@ def phase_main_path() -> dict:
             statistics.median(r["wall"] for r in runs[key])))
     del eng, cloud
     torch.cuda.empty_cache()
+    res["outs"] = first["outs"]
     return res
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the same engine on the card and on the CPU
+# Phase 6: speculative rounds on the main path
+# ---------------------------------------------------------------------------
+
+
+def phase_spec_path(params, cfg, main_res: dict) -> dict:
+    """The main path's engine, weights and traffic with ``spec_k=4``:
+    each decode step becomes a round of 4 drafted positions on the edge
+    and one verify of 4 queries (``paged_flash_mq`` at S = 4) on the
+    cloud.  Three timed repeats; the launch count is the one the code
+    implies: every layer attends once per prefill call on each side plus
+    once more in the draft suffix's prefill, and once per drafted
+    position on the edge (prefix and draft suffix) plus once per verify
+    on the cloud."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve.engine import CollaborativeServingEngine
+
+    n_req, plen, max_new, cut, reps, k = 8, 128, 32, 14, 3, 4
+    channel = Channel.from_kbps(250.0, rtt_ms=20.0)
+    t0 = time.perf_counter()
+    eng = CollaborativeServingEngine(params, cfg, cut_layer=cut,
+                                     channel=channel,
+                                     max_len=plen + max_new + 24, spec_k=k,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
+    eng.generate(prompts[:1], max_new_tokens=2)           # warm-up
+    torch.cuda.synchronize()
+    n_layers, n_cloud = cfg.n_layers, eng.n_cloud
+    runs = []
+    for _ in range(reps):
+        runs.append(_timed(
+            eng, prompts, max_new, cfg.vocab,
+            lambda st: (st.prefill_calls * (n_layers + n_cloud)
+                        + st.spec_rounds * (k * n_layers + n_cloud)),
+            "spec path"))
+        st = runs[-1]["stats"]
+        if st.spec_rounds != st.decode_steps:
+            raise AssertionError(f"spec path: {st.spec_rounds} rounds in "
+                                 f"{st.decode_steps} decode steps")
+    first, st = runs[0], runs[0]["stats"]
+    serial = main_res["outs"]
+    # the prefill is the serial engine's own, so first tokens are equal;
+    # later tokens may differ at near-ties: the verify runs k rows per
+    # slot where the serial step runs one, so its sums round otherwise.
+    # Phase 7 holds the INT8 spec stream to the serial one at 2 layers
+    if [o[0] for o in first["outs"]] != [o[0] for o in serial]:
+        raise AssertionError("spec path: first tokens differ from the "
+                             "serial main path's")
+    agree = sum(a == b for o, s_ in zip(first["outs"], serial)
+                for a, b in zip(o, s_)) / sum(len(o) for o in serial)
+    walls = [r["wall"] for r in runs]
+    n_tok = sum(len(o) for o in first["outs"])
+    res = dict(arch=cfg.name, layers=n_layers, cut=cut, spec_k=k,
+               requests=n_req, slots=4, prompt_len=plen, max_new=max_new,
+               reduced=None, setup_s=setup_s, reps=reps, tokens=n_tok,
+               wall_s_reps=walls, tokens_per_s_reps=[n_tok / w for w in walls],
+               tokens_per_s=n_tok / statistics.median(walls),
+               serial_tokens_per_s=main_res["tokens_per_s"],
+               streams_repeat_identical=all(r["outs"] == first["outs"]
+                                            for r in runs),
+               token_agreement_with_serial=agree,
+               prefill_calls=st.prefill_calls, spec_rounds=st.spec_rounds,
+               drafted_tokens=st.drafted_tokens, draft_hits=st.draft_hits,
+               acceptance_rate=st.acceptance_rate(),
+               tokens_per_round=st.decode_tokens / max(st.spec_rounds, 1),
+               launches=first["launches"],
+               int8_matmul_launches=first["int8_matmul_launches"],
+               transmitted_bytes=st.transmitted_bytes,
+               prefill_bytes=st.prefill_bytes,
+               bytes_per_decode_token=st.bytes_per_decode_token(),
+               channel_latency_s=st.channel_latency_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               first_output=first["outs"][0])
+    emit("spec_path", **res)
+    # as for the serial path, the profiler's window comes after the
+    # timed runs
+    emit("spec_path_profile", requests=n_req, max_new=max_new,
+         **profile_window(
+             lambda: eng.generate(prompts, max_new_tokens=max_new),
+             statistics.median(walls)))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
 
 
 PARITY_TOL = 2e-3      # f32 logits, card vs CPU: GEMM summation order
+# INT8 default, card vs CPU: a one-ulp difference flips a rounding of the
+# Eq.(1) lattice now and then, and the flips move the logits far more
+INT8_NOISE_TOL = 0.25
 
 
 def _teacher_forced(params, cfg, tokens, device):
@@ -471,29 +832,12 @@ def _teacher_forced(params, cfg, tokens, device):
     return logits[0].double().cpu()
 
 
-def phase_path_parity() -> None:
-    import dataclasses
-    from repro_torch.bridge import tree_map
-    from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import init_lm
-    from repro_torch.serve.engine import CollaborativeServingEngine
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=2,
-                              dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    p_gpu = init_lm(cfg, gen, device="cuda")
-    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
-    prompts = [np.random.RandomState(5 + i).randint(0, cfg.vocab, n)
-               .astype(np.int32) for i, n in enumerate((20, 17, 33, 9, 16))]
-    kw = dict(cut_layer=0, max_len=64, a_bits=None, edge_int8=False,
-              cloud_int8=False)
-    streams = {}
-    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
-        eng = CollaborativeServingEngine(p, cfg, device=dev, **kw)
-        streams[dev] = eng.generate(prompts, max_new_tokens=8)
+def _near_ties(card, cpu, prompts, p_gpu, p_cpu, cfg) -> list:
+    """Hold the card's greedy streams to the CPU's: equal, or else at the
+    first divergence both devices' teacher-forced f32 logits agree
+    within ``PARITY_TOL`` and the CPU's top two lie within twice it."""
     checked = []
-    for pr, a, b in zip(prompts, streams["cuda"], streams["cpu"]):
+    for pr, a, b in zip(prompts, card, cpu):
         if a == b:
             continue
         i = next(j for j in range(len(a)) if a[j] != b[j])
@@ -508,10 +852,129 @@ def phase_path_parity() -> None:
                 f"card and CPU streams diverge at step {i} without a "
                 f"near-tie: logits diff {diff}, CPU top-2 gap {gap}")
         checked.append(dict(step=i, logits_diff=diff, top2_gap=gap))
+    return checked
+
+
+class _Decisions:
+    """While active, log the argmax and top-2 logits of every
+    ``lm_head`` row the engines compute (prefill, draft and verify)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as TF
+        self.log, self._tf, orig = [], TF, TF.lm_head
+
+        def logged(tail, x):
+            logits = orig(tail, x)
+            top, idx = torch.topk(logits.float(), 2, dim=-1)
+            self.log.append((idx[..., 0].cpu().numpy(),
+                             top.double().cpu().numpy()))
+            return logits
+
+        self._orig, TF.lm_head = orig, logged
+        return self
+
+    def __exit__(self, *exc):
+        self._tf.lm_head = self._orig
+
+
+def _int8_divergence(card, cpu) -> dict:
+    """Walk two devices' decision logs in step.  Until the first row
+    whose argmax differs, the top logits of every row must agree within
+    ``INT8_NOISE_TOL``; at that row, one device's top two must lie
+    closer together than the largest difference seen so far (a tie
+    within the devices' own noise)."""
+    noise = 0.0
+    for n, ((ia, va), (ib, vb)) in enumerate(zip(card, cpu)):
+        if ia.shape != ib.shape:
+            raise AssertionError(f"INT8 decision {n}: shapes {ia.shape} "
+                                 f"vs {ib.shape} before any divergence")
+        same = ia == ib
+        if same.any():
+            noise = max(noise, float(np.abs(va[..., 0] - vb[..., 0])[same]
+                                     .max()))
+        if noise > INT8_NOISE_TOL:
+            raise AssertionError(f"INT8 card vs CPU logits differ by "
+                                 f"{noise} > {INT8_NOISE_TOL}")
+        if not same.all():
+            j = tuple(np.argwhere(~same)[0])
+            gaps = (float(va[j][0] - va[j][1]), float(vb[j][0] - vb[j][1]))
+            if min(gaps) > noise:
+                raise AssertionError(
+                    f"INT8 card and CPU diverge at decision {n} without a "
+                    f"tie: top-2 gaps {gaps}, noise {noise}")
+            return dict(decision=n, of=len(cpu), top2_gaps=gaps,
+                        noise=noise)
+    if len(card) != len(cpu):
+        raise AssertionError("INT8 decision logs differ in length")
+    return dict(decision=None, of=len(cpu), noise=noise)
+
+
+def phase_path_parity() -> None:
+    """The collaborative engine at full width, 2 layers, f32, on the card
+    and on the CPU (the CPU port is held to the JAX engines by
+    ``tests/test_torch_serve.py`` and ``tests/test_torch_spec.py``):
+
+    * lossless, serial and ``spec_k=4``: both card streams against the
+      CPU's serial stream, up to near-ties (``_near_ties``);
+    * the INT8 default (INT8 pages on both sides, INT8 draft cache):
+      on each device the ``spec_k=4`` stream must equal the serial one,
+      as the JAX engines' do (the verify's INT8 page writes at S = 4,
+      the draft cache and the accept counts feed every committed
+      token); the card's serial decisions are held to the CPU's up to
+      the first tie (``_int8_divergence``)."""
+    import dataclasses
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import CollaborativeServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=2,
+                              dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p_gpu = init_lm(cfg, gen, device="cuda")
+    p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+    prompts = [np.random.RandomState(5 + i).randint(0, cfg.vocab, n)
+               .astype(np.int32) for i, n in enumerate((20, 17, 33, 9, 16))]
+    lossless = dict(a_bits=None, edge_int8=False, cloud_int8=False)
+    runs, logs = {}, {}
+    for tag, dev, p, kw in (
+            ("lossless", "cuda", p_gpu, lossless),
+            ("lossless", "cpu", p_cpu, lossless),
+            ("lossless_spec", "cuda", p_gpu, dict(lossless, spec_k=4)),
+            ("int8", "cuda", p_gpu, {}), ("int8", "cpu", p_cpu, {}),
+            ("int8_spec", "cuda", p_gpu, dict(spec_k=4)),
+            ("int8_spec", "cpu", p_cpu, dict(spec_k=4))):
+        eng = CollaborativeServingEngine(p, cfg, device=dev, cut_layer=0,
+                                         max_len=64, **kw)
+        with _Decisions() as d:
+            runs[tag, dev] = (eng.generate(prompts, max_new_tokens=8),
+                              eng.stats)
+        logs[tag, dev] = d.log
+    cpu_serial = runs["lossless", "cpu"][0]
+    checked = {tag: _near_ties(runs[tag, "cuda"][0], cpu_serial, prompts,
+                               p_gpu, p_cpu, cfg)
+               for tag in ("lossless", "lossless_spec")}
+    for dev in ("cuda", "cpu"):
+        if runs["int8_spec", dev][0] != runs["int8", dev][0]:
+            raise AssertionError(f"INT8 spec stream differs from the "
+                                 f"serial one on {dev}")
+    div = _int8_divergence(logs["int8", "cuda"], logs["int8", "cpu"])
+    card, cpu = runs["int8", "cuda"][0], runs["int8", "cpu"][0]
     emit("path_parity", arch=cfg.name, layers=cfg.n_layers,
-         dtype="float32", requests=len(prompts),
-         identical=streams["cuda"] == streams["cpu"],
-         near_ties=checked, tol=PARITY_TOL)
+         dtype="float32", requests=len(prompts), tol=PARITY_TOL,
+         identical=runs["lossless", "cuda"][0] == cpu_serial,
+         near_ties=checked["lossless"],
+         spec_identical=runs["lossless_spec", "cuda"][0] == cpu_serial,
+         spec_near_ties=checked["lossless_spec"],
+         int8_spec_equals_serial=True,
+         int8_spec_draft_hits={dev: runs["int8_spec", dev][1].draft_hits
+                               for dev in ("cuda", "cpu")},
+         int8_spec_drafted=runs["int8_spec", "cpu"][1].drafted_tokens,
+         int8_card_vs_cpu_identical=card == cpu,
+         int8_card_vs_cpu_first_token_equal=[a[0] == b[0]
+                                             for a, b in zip(card, cpu)],
+         int8_divergence=div, int8_noise_tol=INT8_NOISE_TOL)
 
 
 def main(argv=None) -> int:
@@ -533,21 +996,51 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     kres = phase_kernels()
+    ires = phase_int8_kernels()
     if args.only == "kernels":
         return 0
-    main_res = phase_main_path()
+    # one seeded set of deepseek-7b weights for phases 4-6
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+    cfg = get_arch("deepseek-7b").full
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    torch.cuda.synchronize()
+    emit("weights", arch=cfg.name, seed=0, init_s=time.perf_counter() - t0,
+         gb=torch.cuda.memory_allocated() / 1e9)
+    phase_quantized_dense(params, cfg)
+    main_res = phase_main_path(params, cfg)
+    spec_res = phase_spec_path(params, cfg, main_res)
+    del params
+    torch.cuda.empty_cache()
     phase_path_parity()
-    # the summary row is the shape the main path launches most: decode
+    # each summary row is the kernel's main-path shape: the decode step
+    # of 4 slots (int8_matmul: gate/up at M = 4; the serving path does
+    # not call it, so its main-path count is 0 — read, not assumed)
     dec = next(r for r in kres if r["shape"] == "deepseek7b_decode_int8")
+    mm = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
     print(json.dumps({"kernels": [{
         "name": "paged_flash_mq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:213",
         "launches": main_res["launches"],
+        "spec_path_launches": spec_res["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres),
         "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": None, "shape": dec["shape"]}]}), flush=True)
+        "library_ms": None, "shape": dec["shape"]}, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:139",
+        "launches": main_res["int8_matmul_launches"],
+        "spec_path_launches": spec_res["int8_matmul_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ires
+                           if r["out_dtype"] == "torch.float32"),
+        "ms": mm["kernel_ms"], "plain_ms": mm["plain_ms"],
+        "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
+        "library_ms": None, "int_mm_ms": mm["int_mm_ms"],
+        "shape": mm["shape"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.quant import QuantParams
 from repro_torch.device import DeviceLike, resolve_device
 
-__all__ = ["params_from_numpy", "tree_map"]
+__all__ = ["params_from_numpy", "qparams_from_numpy", "tree_map"]
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -38,3 +39,13 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     dict of tensors on ``device``, value for value."""
     dev = resolve_device(device)
     return tree_map(lambda leaf: _to_tensor(leaf, dev), tree)
+
+
+def qparams_from_numpy(qp: Any, device: DeviceLike = None) -> QuantParams:
+    """Quantization parameters of the JAX package (any object with
+    ``scale``, ``zero_point``, ``axis``, ``bits`` and ``signed``) → the
+    port's ``QuantParams`` on ``device``, value for value."""
+    dev = resolve_device(device)
+    return QuantParams(scale=_to_tensor(qp.scale, dev),
+                       zero_point=_to_tensor(qp.zero_point, dev),
+                       axis=qp.axis, bits=qp.bits, signed=qp.signed)

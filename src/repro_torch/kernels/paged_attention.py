@@ -28,6 +28,7 @@ produce — computes the same softmax as both JAX functions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -68,10 +69,29 @@ def paged_attention_mq_ref(q: torch.Tensor, k_pages: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Plain gather-based version of the q-block kernel →
-    [B, S, n_heads, hd] in ``q.dtype``.  On a CUDA tensor it runs with
-    TF32 matmuls switched off, so both einsums are full f32."""
-    if q.is_cuda:
+    [B, S, n_heads, hd] in ``q.dtype``.  On a CUDA tensor both einsums
+    run in full f32: TF32 matmuls are switched off for this call only."""
+    with _full_f32_matmul(q.is_cuda):
+        return _paged_attention_mq_plain(q, k_pages, v_pages, block_tables,
+                                         lengths, q_start, k_scale, v_scale)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul(active: bool):
+    """Switch TF32 matmuls off inside the block (when ``active``) and
+    restore the caller's setting afterwards, so the oracle's precision
+    never leaks into later f32 matmuls of the process."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    if active:
         torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _paged_attention_mq_plain(q, k_pages, v_pages, block_tables, lengths,
+                              q_start, k_scale, v_scale) -> torch.Tensor:
     b, s, n_heads, hd = q.shape
     _, page_size, n_kv, _ = k_pages.shape
     group = n_heads // n_kv

@@ -1,13 +1,15 @@
 """Serving launcher of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
-        --collaborative --cut auto --bandwidth 250
+        --collaborative --cut auto --bandwidth 250 --spec-k auto
 
 Cloud-only mode runs the batched engine over a paged fp KV cache (the
 port's stand-in for the reference's dense cache, which the JAX suite
 shows it equals); ``--collaborative`` splits the stack at the
 (auto-tuned or given) block and runs the paper's INT8-edge / fp-cloud
-pipeline over a simulated wireless channel.  Runs on the CUDA card
+pipeline over a simulated wireless channel; ``--spec-k`` turns its
+decode into speculative draft/verify rounds (an int, or ``auto`` for
+the cost model's pick).  Runs on the CUDA card
 unless ``--device cpu`` is given.  Weights are random, from a seeded
 ``torch.Generator``.
 """
@@ -52,12 +54,16 @@ def main(argv=None):
                     help="wireless KB/s for the collaborative channel")
     ap.add_argument("--rtt", type=float, default=20.0,
                     help="wireless round-trip time in ms")
+    ap.add_argument("--spec-k", default="1",
+                    help="speculative draft length: an int, or 'auto' to "
+                         "pick it from the channel with the cost model")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the engines run (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     args = ap.parse_args(argv)
 
+    spec_k = args.spec_k if args.spec_k == "auto" else int(args.spec_k)
     dev = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.full
@@ -91,7 +97,7 @@ def main(argv=None):
         cut_layer = int(args.cut)
     eng = CollaborativeServingEngine(params, cfg, cut_layer=cut_layer,
                                      channel=channel, max_len=max_len,
-                                     device=dev)
+                                     spec_k=spec_k, device=dev)
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=args.max_new)
     dt = time.perf_counter() - t0
@@ -101,6 +107,10 @@ def main(argv=None):
           f"{eng.stats.bytes_per_decode_token():.0f} B/token incremental "
           f"decode), simulated channel "
           f"time {eng.stats.channel_latency_s:.2f}s")
+    if eng.spec_k > 1:
+        print(f"speculative rounds: spec_k={eng.spec_k}, "
+              f"{eng.stats.spec_rounds} rounds, draft acceptance "
+              f"{eng.stats.acceptance_rate():.0%}")
     print("first output:", outs[0])
 
 

@@ -178,6 +178,9 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     cos, sin = rope
     if vec_index:
         tpos = cache_index[:, None] + torch.arange(s, device=x.device)[None]
+        # an idle slot's stale position plus a verify block can run past
+        # the table; JAX clamps such gather indices, and so does this
+        tpos = torch.clamp(tpos, max=cos.shape[0] - 1)
         cos_q, sin_q = cos[tpos], sin[tpos]                    # [B, S, ·]
     else:
         i0 = int(cache_index)

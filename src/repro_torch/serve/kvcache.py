@@ -140,7 +140,12 @@ class _PagedPool:
             self.bt[s, :] = 0
             self.bt[s, :len(pages)] = pages
         self._dev = None
-        width = max(1, _cdiv(padded_len, self.page_size))
+        return self.rows(slots, padded_len)
+
+    def rows(self, slots: Sequence[int], padded_len: int) -> torch.Tensor:
+        """Current block-table rows for ``slots``, trimmed to the pages a
+        ``padded_len``-position prefill or replay can touch."""
+        width = max(1, _cdiv(int(padded_len), self.page_size))
         return self._copy(self.bt[np.asarray(slots)][:, :width])
 
     def retire(self, slot: int) -> None:

@@ -4,13 +4,14 @@ Counterpart of ``_prequantize_blocks`` and ``_CutBank`` in
 ``repro.serve.policy``: the edge's INT8 deployment lattice is applied to
 every weight leaf **once**, per layer (exactly the thresholds the
 runtime would compute for each layer slice), so runtime contexts run
-with ``QuantCtx(quantize_weights=False)``.  The online ``AdaptivePolicy``
-and the admission policies come with the adaptive slice; so does the
-bank's draft-suffix copy, which only speculative rounds use.
+with ``QuantCtx(quantize_weights=False)``.  A bank built for
+speculative rounds also holds the INT8 copy of every cut's cloud suffix,
+which the edge drafts with.  The online ``AdaptivePolicy`` and the
+admission policies come with the adaptive slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -50,23 +51,32 @@ def _prequantize_blocks(blocks: Dict[str, Any], deploy_qctx,
 class _CutBank:
     """Prequantized weight bank for the cuts an engine may serve.
 
-    The edge prefix of the deepest bank cut is quantized once; every
-    cut's (INT8-lattice edge prefix, fp cloud suffix) pair is then a
-    pair of views of the stacked leaves."""
+    The edge prefix of the deepest bank cut — with ``drafts``, the whole
+    block stack — is quantized once (per block, so every cut shares the
+    identical quantized blocks); every cut's (INT8-lattice edge prefix,
+    fp cloud suffix, INT8-lattice draft suffix) is then views of the
+    stacked leaves."""
 
     def __init__(self, params: Dict[str, Any], cfg: TF.LMConfig,
-                 cuts: Iterable[int], deploy_qctx=None) -> None:
+                 cuts: Iterable[int], deploy_qctx=None, *,
+                 drafts: bool = False) -> None:
         self._cuts = tuple(sorted({int(c) for c in cuts}))
         if not all(0 <= c < cfg.n_layers for c in self._cuts):
             raise ValueError(f"cuts {self._cuts} outside [0, {cfg.n_layers})")
         self._fp = params["blocks"]
-        deepest = tree_map(lambda v: v[:max(self._cuts) + 1], self._fp)
-        self._q = deepest if deploy_qctx is None \
-            else _prequantize_blocks(deepest, deploy_qctx)
+        self._drafts = drafts
+        depth = cfg.n_layers if drafts else max(self._cuts) + 1
+        quantized = tree_map(lambda v: v[:depth], self._fp)
+        self._q = quantized if deploy_qctx is None \
+            else _prequantize_blocks(quantized, deploy_qctx)
 
-    def get(self, cut: int) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """(edge prefix @ INT8 lattice, cloud suffix @ fp) for ``cut``."""
+    def get(self, cut: int) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                      Optional[Dict[str, Any]]]:
+        """(edge prefix @ INT8 lattice, cloud suffix @ fp, draft suffix
+        copy @ INT8 lattice or None without ``drafts``) for ``cut``."""
         if cut not in self._cuts:
             raise KeyError(f"cut {cut} not in weight bank {self._cuts}")
+        draft = (tree_map(lambda v: v[cut + 1:], self._q) if self._drafts
+                 else None)
         return (tree_map(lambda v: v[:cut + 1], self._q),
-                tree_map(lambda v: v[cut + 1:], self._fp))
+                tree_map(lambda v: v[cut + 1:], self._fp), draft)

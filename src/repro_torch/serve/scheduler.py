@@ -3,11 +3,13 @@
 Counterpart of ``repro.serve.scheduler`` for the slice this port runs:
 requests queue up in order, prompts are right-padded to power-of-two
 *buckets* and same-bucket prompts are prefilled together into free
-cache slots, every **round** advances all occupied slots by one token at
-their own positions, and a finished request frees its slot — and its KV
-pages — for the next queued prompt mid-flight.  The current token and
-position of every slot stay on the device; the host reads the tokens
-once, after the last round.
+cache slots, every **round** advances all occupied slots at their own
+positions, and a finished request frees its slot — and its KV pages —
+for the next queued prompt mid-flight.  A round commits one token per
+slot (the serial step) or, in a speculative engine, a per-slot number
+of them that the engine reports back (``_round``).  The current token
+and position of every slot stay on the device; the host reads the
+tokens once, after the last round.
 
 The JAX reference jits each phase and donates the cache buffers; here
 each phase is a plain call and the cache tensors are updated in place,
@@ -52,8 +54,9 @@ class _SlotEngine:
 
     Subclasses implement ``_admit`` (prefill a prompt group into specific
     slots) and ``_decode_all`` (advance every slot one token), and may
-    hook ``_retire`` (a slot's request finished — return its KV pages)
-    and ``_can_admit`` (admission backpressure from the page pool)."""
+    hook ``_round`` (a speculative round instead of one serial step),
+    ``_retire`` (a slot's request finished — return its KV pages) and
+    ``_can_admit`` (admission backpressure from the page pool)."""
 
     def __init__(self, cfg: TF.LMConfig, *, max_batch: int, max_len: int,
                  device: torch.device):
@@ -63,6 +66,11 @@ class _SlotEngine:
         self.device = device
         self.stats = ServeStats()
         self._rope_tab = None
+        # live view for hooks that rebuild per-slot state mid-run (the
+        # draft-cache rebuild): slot -> (request, n_committed), and a
+        # function returning a live request's committed tokens
+        self._sched_active = None
+        self._sched_committed = None
 
     # -- subclass interface -------------------------------------------------
     def _admit(self, toks: torch.Tensor, plens: np.ndarray,
@@ -73,6 +81,37 @@ class _SlotEngine:
     def _decode_all(self, cur: torch.Tensor, pos: torch.Tensor,
                     n_active: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
+
+    def _round(self, cur: torch.Tensor, pos: torch.Tensor,
+               slots: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor,
+                                           Optional[np.ndarray]]:
+        """Advance the occupied ``slots`` by one round.
+
+        Returns ``(cur, pos, tokens, counts)``: ``tokens`` is the
+        ``[max_batch, k]`` device block of tokens the round produced and
+        ``counts`` the per-slot number of *committed* leading tokens —
+        ``None`` means "one per slot" (the serial step, which therefore
+        never waits for the device)."""
+        cur, pos = self._decode_all(cur, pos, len(slots))
+        return cur, pos, cur[:, None], None
+
+    def _round_headroom(self) -> int:
+        """Cache positions a round may write *past* a request's budget
+        (speculative drafting overshoots by up to k-1); admission
+        reserves them so overshoot writes never alias another request's
+        pages."""
+        return 0
+
+    def _round_width(self) -> int:
+        """Cache positions one round writes per slot (the draft length);
+        demand paging (ROADMAP A12) grows each slot's claim by it before
+        the round runs."""
+        return 1
+
+    def _after_round(self, n_active: int, committed: int) -> None:
+        """Hook: one round just finished, having committed ``committed``
+        tokens across ``n_active`` slots."""
 
     def _retire(self, slot: int) -> None:
         """Hook: the request in ``slot`` finished (free paged KV, etc.)."""
@@ -112,9 +151,21 @@ class _SlotEngine:
         cur = torch.zeros((self.max_batch,), dtype=torch.int32,
                           device=self.device)
         pos = torch.zeros_like(cur)
-        # every admission and every round logs (token block [B, 1], takes);
+        # every admission and every round logs (token block [B, k], takes);
         # token blocks stay on device until one concat + copy at the end
         rounds: List[Tuple[torch.Tensor, List[Tuple[Request, int, int]]]] = []
+
+        def committed_tokens(r: Request) -> np.ndarray:
+            """``r``'s committed tokens, read off the logged round blocks
+            (one host copy per block that holds some)."""
+            chunks = [t[s, :n].cpu().numpy()
+                      for t, takes in rounds
+                      for rr, s, n in takes if rr is r and n > 0]
+            return (np.concatenate(chunks).astype(np.int32) if chunks
+                    else np.zeros((0,), np.int32))
+
+        self._sched_active = active
+        self._sched_committed = committed_tokens
 
         while queue or active:
             stalled = False
@@ -129,10 +180,12 @@ class _SlotEngine:
                 while free and queue and _bucket_len(
                         len(queue[0].prompt), self.max_len) == bucket:
                     r = queue[0]
-                    if len(r.prompt) + r.max_new_tokens > self.max_len:
+                    if (len(r.prompt) + r.max_new_tokens
+                            + self._round_headroom()) > self.max_len:
                         raise ValueError(
                             f"request uid={r.uid}: prompt + generation "
-                            f"exceeds cache max_len={self.max_len}")
+                            f"(+ draft headroom) exceeds cache "
+                            f"max_len={self.max_len}")
                     if not self._can_admit(shapes, len(r.prompt),
                                            r.max_new_tokens, bucket):
                         stalled, stall_req = True, r
@@ -173,18 +226,26 @@ class _SlotEngine:
                 self._retire(s)
                 free.append(s)
             if active:
-                act = sorted(active)
-                cur, pos = self._decode_all(cur, pos, len(act))
+                act = np.asarray(sorted(active), np.int32)
+                cur, pos, toks_r, counts = self._round(cur, pos, act)
                 takes = []
-                for s in act:
+                for s in act.tolist():
                     r, c = active[s]
-                    active[s] = (r, c + 1)
-                    takes.append((r, s, 1))
-                rounds.append((cur[:, None], takes))
+                    n = 1 if counts is None else int(counts[s])
+                    n = min(n, r.max_new_tokens - c)  # trim budget overshoot
+                    active[s] = (r, c + n)
+                    takes.append((r, s, n))
+                rounds.append((toks_r, takes))
                 self.stats.decode_steps += 1
-                self.stats.decode_tokens += len(takes)
+                committed = sum(n for _, _, n in takes)
+                self.stats.decode_tokens += committed
+                self._after_round(len(takes), committed)
+        self._sched_active = None
+        self._sched_committed = None
         # single device → host copy for the whole run
         all_toks = torch.cat([t for t, _ in rounds], dim=1).cpu().numpy()
-        for col, (_, takes) in enumerate(rounds):
+        col = 0
+        for toks_r, takes in rounds:
             for r, s, n in takes:
                 r.out_tokens.extend(int(t) for t in all_toks[s, col:col + n])
+            col += toks_r.shape[1]

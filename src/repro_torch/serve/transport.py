@@ -33,9 +33,9 @@ _MSG_BYTES = int(MSG_BYTES)
 
 
 class LinkTelemetry:
-    """Online estimates of the link, from the traffic the engine sends
-    anyway (the draft-acceptance and loss estimates of the reference
-    come with the speculative and reliability slices).
+    """Online estimates of the link and the draft quality, from the
+    traffic the engine sends anyway (the loss estimate of the reference
+    comes with the reliability slice).
 
     Every charged message is an ``(nbytes, seconds)`` sample of
     ``seconds = nbytes / bandwidth + rtt`` — a line in ``nbytes`` — so
@@ -47,6 +47,9 @@ class LinkTelemetry:
     size the last well-conditioned estimate is held.  EWMA weighting
     makes the estimate track channel drift with a ~``1/alpha``-message
     memory.
+
+    Draft/verify rounds contribute ``(graded, hits)`` samples giving an
+    EWMA draft acceptance rate for ``autotune.tune_spec_k``.
     """
 
     # no physical last hop beats ~1 TB/s: a degenerate sample pair can
@@ -58,9 +61,11 @@ class LinkTelemetry:
         self.alpha = alpha
         self.min_samples = min_samples
         self.n_samples = 0
+        self.n_rounds = 0
         self._mx = self._my = self._mxx = self._mxy = 0.0
         self._bw: Optional[float] = None
         self._rtt: Optional[float] = None
+        self._acc: Optional[float] = None
 
     # -- observations -------------------------------------------------------
     def observe_transfer(self, nbytes: float, seconds: float) -> None:
@@ -89,6 +94,18 @@ class LinkTelemetry:
             self._bw = min(1.0 / slope, self.BW_CEILING_BYTES_PER_S)
             self._rtt = max(0.0, self._my - slope * self._mx)
 
+    def observe_round(self, graded: int, hits: int) -> None:
+        """One verify round's ``(graded drafts, accepted drafts)``.  A
+        round that graded drafts and accepted none is a first-class
+        ``r = 0.0`` sample; only ``graded <= 0`` (a serial step, which
+        grades nothing) is skipped."""
+        if graded <= 0:
+            return
+        r = min(max(hits, 0), graded) / graded
+        self._acc = r if self._acc is None \
+            else self._acc + self.alpha * (r - self._acc)
+        self.n_rounds += 1
+
     # -- estimates ----------------------------------------------------------
     @property
     def bandwidth_bytes_per_s(self) -> Optional[float]:
@@ -97,6 +114,9 @@ class LinkTelemetry:
     @property
     def rtt_s(self) -> Optional[float]:
         return self._rtt
+
+    def acceptance(self, prior: float = 0.8) -> float:
+        return prior if self._acc is None else self._acc
 
     def channel(self, fallback: Channel) -> Channel:
         """The estimated channel, or ``fallback`` until the regression
@@ -166,14 +186,16 @@ class Transport:
         self.charge(stats, nbytes + _MSG_BYTES, phase=phase)
 
     def account_downlink(self, stats: ServeStats, n_rows: int, *,
-                         phase: str = "decode") -> None:
-        """The cloud→edge return: the greedy token per live request (the
-        speculative accept mask comes with ``spec_k > 1``).  The edge
-        can't start the next step until it arrives, so every step pays
-        this second transfer and its channel RTT.  Counted in
+                         k: int = 1, phase: str = "decode") -> None:
+        """The cloud→edge return: the greedy (or corrected) token per live
+        request, plus — when a round verified k > 1 drafts — the accept
+        mask (one bit per draft, byte-packed).  The edge can't start the
+        next round until it arrives, so every round pays this second
+        transfer and its channel RTT.  Counted in
         ``transmitted_bytes``/``downlink_bytes``, never in the uplink
         ``decode_bytes`` split."""
-        nbytes = n_rows * _TOK_BYTES + _MSG_BYTES
+        mask = -(-k // 8) if k > 1 else 0
+        nbytes = n_rows * (_TOK_BYTES + mask) + _MSG_BYTES
         t = self._transfer(stats, nbytes)
         stats.transmitted_bytes += nbytes
         stats.channel_latency_s += t

@@ -1,0 +1,228 @@
+"""Port parity: the fused INT8 GEMM's front doors and plain version
+(``repro_torch.kernels.ops`` / ``.ref``) against ``repro.kernels.ops``
+(the Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs
+it) and ``repro.kernels.ref``, on the same numpy inputs.
+
+Tolerances: f32 outputs to rtol 1e-5, atol 1e-4 (the JAX suite's own:
+XLA and PyTorch round the f32 epilogue in different places); int8
+outputs within one lattice step in under 1 % of elements; the identity
+epilogue (unit scales, zero zero points) exactly, since every int32 sum
+there fits f32's mantissa.  On the CPU the front door takes the plain
+version and launches nothing."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip(
+    "hypothesis", reason="property tests need hypothesis; skip, don't "
+    "kill collection of the whole tier-1 suite")
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.quant import QuantParams as JQP  # noqa: E402
+from repro.core.quant import compute_qparams  # noqa: E402
+from repro.core.quant import quantize as jquantize  # noqa: E402
+from repro.kernels import int8_matmul as JK  # noqa: E402
+from repro.kernels import ops as JO  # noqa: E402
+from repro.kernels import ref as JR  # noqa: E402
+from repro_torch.bridge import qparams_from_numpy  # noqa: E402
+from repro_torch.core import quant as TQ  # noqa: E402
+from repro_torch.kernels import int8_matmul as TK  # noqa: E402
+from repro_torch.kernels import ops as TO  # noqa: E402
+from repro_torch.kernels import ref as TR  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+F32_TOL = dict(rtol=1e-5, atol=1e-4)
+SHAPES = [(8, 16, 8), (16, 32, 24), (128, 128, 128), (64, 256, 96),
+          (1, 64, 40), (33, 65, 17)]
+
+
+def _inputs(m, k, n, seed=0, per_channel=False):
+    """The JAX suite's inputs (``tests/test_kernels.py::_mk_inputs``),
+    quantized by the JAX package, for both sides."""
+    rng = np.random.RandomState(seed)
+    a = jnp.asarray(rng.uniform(-4, 3, (m, k)).astype(np.float32))
+    w = jnp.asarray(rng.uniform(-0.8, 1.1, (k, n)).astype(np.float32))
+    qa = compute_qparams(a)
+    qw = compute_qparams(w, axis=1 if per_channel else None)
+    return jquantize(a, qa), jquantize(w, qw), qa, qw
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _qp(qp):
+    return qparams_from_numpy(qp, "cpu")
+
+
+def _three_ways(a_q, b_q, qa, qw, **kw):
+    """(Pallas in interpret mode, JAX oracle, port front door) as numpy;
+    the port's front door must launch nothing on CPU tensors."""
+    t_kw = dict(kw)
+    if kw.get("bias") is not None:
+        t_kw["bias"] = _t(kw["bias"])
+    if kw.get("out_qp") is not None:
+        t_kw["out_qp"] = _qp(kw["out_qp"])
+    before = TK.int8_matmul_cuda.launches
+    got = TO.int8_matmul(_t(a_q), _t(b_q), _qp(qa), _qp(qw), **t_kw)
+    assert TK.int8_matmul_cuda.launches == before
+    pallas = JO.int8_matmul(a_q, b_q, qa, qw, interpret=True, **kw)
+    oracle = JR.int8_matmul_ref(a_q, b_q, qa, qw, **kw)
+    return np.asarray(pallas), np.asarray(oracle), got.numpy()
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_matches_reference_f32_out(m, k, n, per_channel):
+    a_q, b_q, qa, qw = _inputs(m, k, n, seed=m + n, per_channel=per_channel)
+    pallas, oracle, got = _three_ways(a_q, b_q, qa, qw)
+    assert got.dtype == np.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got, oracle, **F32_TOL)
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+def test_fused_activation_and_bias(act):
+    a_q, b_q, qa, qw = _inputs(32, 64, 48, seed=7, per_channel=True)
+    bias = jnp.asarray(np.random.RandomState(8).randn(48).astype(np.float32))
+    pallas, oracle, got = _three_ways(a_q, b_q, qa, qw, bias=bias, act=act)
+    np.testing.assert_allclose(got, oracle, **F32_TOL)
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+
+
+def test_gelu_is_the_tanh_approximation():
+    """jax.nn.gelu defaults to tanh; torch's default (erf) differs by
+    more than the tolerance on these inputs."""
+    x = torch.linspace(-4, 4, 101)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x.numpy())))
+    np.testing.assert_allclose(TR._ACTS["gelu"](x).numpy(), want, **F32_TOL)
+    assert np.abs(torch.nn.functional.gelu(x).numpy() - want).max() > 1e-4
+
+
+@pytest.mark.parametrize("act", ["relu", "silu", "gelu"])
+def test_requant_int8_out(act):
+    a_q, b_q, qa, qw = _inputs(64, 128, 32, seed=3)
+    ref_f32 = JR.int8_matmul_ref(a_q, b_q, qa, qw, act=act)
+    out_qp = compute_qparams(ref_f32)
+    pallas, oracle, got = _three_ways(a_q, b_q, qa, qw, act=act,
+                                      out_qp=out_qp)
+    assert got.dtype == np.int8
+    for want in (oracle, pallas):
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1
+        assert (diff > 0).mean() < 0.01
+
+
+def test_multi_k_step_accumulation():
+    """K = 512 spans several of the CUDA kernel's 128-deep tiles and the
+    Pallas kernel's forced 128-deep K grid."""
+    a_q, b_q, qa, qw = _inputs(16, 512, 16, seed=5)
+    got = TO.int8_matmul(_t(a_q), _t(b_q), _qp(qa), _qp(qw)).numpy()
+    pallas = JO.int8_matmul(a_q, b_q, qa, qw, block=(16, 16, 128),
+                            interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **F32_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(JR.int8_matmul_ref(a_q, b_q, qa, qw)), **F32_TOL)
+
+
+def test_identity_epilogue_is_the_exact_int32_product():
+    rng = np.random.RandomState(9)
+    a = rng.randint(-128, 128, (33, 300)).astype(np.int8)
+    b = rng.randint(-128, 128, (300, 17)).astype(np.int8)
+    one = TQ.QuantParams(scale=torch.tensor(1.0),
+                         zero_point=torch.tensor(0.0))
+    got = TO.int8_matmul(torch.tensor(a), torch.tensor(b), one, one)
+    np.testing.assert_array_equal(
+        got.numpy(), (a.astype(np.int64) @ b.astype(np.int64))
+        .astype(np.float32))
+
+
+def test_matmul_against_float_truth():
+    m, k, n = 64, 256, 64
+    rng = np.random.RandomState(11)
+    a = rng.uniform(-1, 1, (m, k)).astype(np.float32)
+    w = rng.uniform(-1, 1, (k, n)).astype(np.float32)
+    ta, tw = torch.tensor(a), torch.tensor(w)
+    qa, qw = TQ.compute_qparams(ta), TQ.compute_qparams(tw, axis=1)
+    got = TO.int8_matmul(TQ.quantize(ta, qa), TQ.quantize(tw, qw), qa, qw)
+    truth = ta @ tw
+    assert float(torch.linalg.norm(got - truth)
+                 / torch.linalg.norm(truth)) < 0.01
+
+
+def test_quantized_dense_3d_batch():
+    rng = np.random.RandomState(12)
+    x = rng.randn(4, 9, 32).astype(np.float32)
+    w = rng.randn(32, 24).astype(np.float32)
+    qx = compute_qparams(jnp.asarray(x))
+    qw = compute_qparams(jnp.asarray(w), axis=1)
+    w_q = jquantize(jnp.asarray(w), qw)
+    want = JR.quantized_dense_ref(jnp.asarray(x), w_q, qx, qw, act="relu")
+    pallas = JO.quantized_dense(jnp.asarray(x), w_q, qx, qw, act="relu",
+                                interpret=True)
+    got = TO.quantized_dense(_t(x), _t(w_q), _qp(qx), _qp(qw), act="relu")
+    ref = TR.quantized_dense_ref(_t(x), _t(w_q), _qp(qx), _qp(qw),
+                                 act="relu")
+    assert tuple(got.shape) == (4, 9, 24)
+    for other in (want, pallas, ref.numpy()):
+        np.testing.assert_allclose(got.numpy(), np.asarray(other),
+                                   **F32_TOL)
+
+
+def test_sub_int8_requant_follows_the_oracle_not_the_pallas_clip():
+    """At 4-bit output the two JAX functions disagree: the Pallas
+    epilogue clips to int8's range and always writes int8, the oracle
+    clips to [qmin, qmax] of ``out_qp`` and casts to its storage type.
+    The port follows the oracle (ROADMAP C)."""
+    a_q, b_q, qa, qw = _inputs(24, 64, 20, seed=13, per_channel=True)
+    for signed in (True, False):
+        out_qp = JQP(scale=jnp.float32(0.05), zero_point=jnp.float32(
+            0.0 if signed else 8.0), bits=4, signed=signed)
+        pallas, oracle, got = _three_ways(a_q, b_q, qa, qw, out_qp=out_qp)
+        assert pallas.dtype == np.int8
+        assert oracle.dtype == (np.int8 if signed else np.uint8)
+        assert not np.array_equal(pallas.astype(np.int32),
+                                  oracle.astype(np.int32))
+        assert got.dtype == oracle.dtype
+        assert oracle.min() >= out_qp.qmin and oracle.max() <= out_qp.qmax
+        diff = np.abs(got.astype(np.int32) - oracle.astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+
+def test_pallas_kernel_clip_is_int8_range():
+    """The divergence above comes from the kernel itself, not from the
+    front door's padding: the raw Pallas call at 4-bit requant params
+    still produces values outside [-8, 7]."""
+    a_q, b_q, qa, qw = _inputs(16, 32, 16, seed=14)
+    n = b_q.shape[1]
+    out = JK.int8_matmul_pallas(
+        a_q, b_q, qa.scale, qa.zero_point,
+        jnp.broadcast_to(qw.scale, (n,)),
+        jnp.broadcast_to(qw.zero_point, (n,)), jnp.zeros((n,)),
+        jnp.float32(0.05), jnp.float32(0.0), true_k=32, block=(16, 16, 32),
+        requant=True, interpret=True)
+    assert int(jnp.max(out)) > 7 or int(jnp.min(out)) < -8
+
+
+def test_kernel_launcher_needs_cuda_tensors():
+    a_q, b_q, qa, qw = _inputs(4, 16, 8, seed=15)
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.int8_matmul_cuda(_t(a_q), _t(b_q), one, one, torch.ones(8),
+                            torch.ones(8))
+    assert TK.int8_matmul_cuda.launches == 0
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(1, 40), st.integers(1, 80), st.integers(1, 40),
+       st.booleans())
+def test_prop_any_shape_matches_reference(m, k, n, per_channel):
+    a_q, b_q, qa, qw = _inputs(m, k, n, seed=m * 89 + k * 7 + n,
+                               per_channel=per_channel)
+    got = TO.int8_matmul(_t(a_q), _t(b_q), _qp(qa), _qp(qw)).numpy()
+    want = np.asarray(JR.int8_matmul_ref(a_q, b_q, qa, qw))
+    np.testing.assert_allclose(got, want, **F32_TOL)

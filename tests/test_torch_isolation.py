@@ -32,6 +32,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+assert {"repro_torch.kernels.ops", "repro_torch.kernels.ref",
+        "repro_torch.kernels.int8_matmul",
+        "repro_torch.serve.spec"} <= set(names)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print(len(names))

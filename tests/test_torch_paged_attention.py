@@ -117,3 +117,25 @@ def test_pages_outside_the_table_do_not_matter():
     after = _torch(TPA.paged_attention_mq_ref,
                    (q, kp, vp, bt, lens, q0, ks, vs))
     np.testing.assert_array_equal(before, after)
+
+
+@pytest.mark.parametrize("saved", [True, False])
+def test_plain_version_leaves_the_tf32_setting_as_it_was(saved,
+                                                         monkeypatch):
+    """The oracle switches TF32 matmuls off for its own call on a CUDA
+    tensor and restores the caller's setting afterwards; on the CPU it
+    leaves it alone.  The helper is driven directly (no card here)."""
+    flag = torch.backends.cuda.matmul
+    monkeypatch.setattr(flag, "allow_tf32", saved)
+    with TPA._full_f32_matmul(True):
+        assert flag.allow_tf32 is False
+    assert flag.allow_tf32 is saved
+    with pytest.raises(RuntimeError):
+        with TPA._full_f32_matmul(True):
+            raise RuntimeError("inside the oracle")
+    assert flag.allow_tf32 is saved
+    with TPA._full_f32_matmul(False):
+        assert flag.allow_tf32 is saved
+    args = _case(4, page_int8=True, group=2, s=3, scales="per_slot")
+    _torch(TPA.paged_attention_mq_ref, args)
+    assert flag.allow_tf32 is saved

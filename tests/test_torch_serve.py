@@ -197,10 +197,18 @@ def test_cli_runs_collaborative_on_cpu(capsys):
 
 
 def test_unported_options_raise(params):
+    """Only the options still unported raise (``spec_k > 1`` is ported;
+    its parity tests are in ``test_torch_spec.py``)."""
     _, tp = params
-    for kw, item in ((dict(spec_k=2), "A9"), (dict(policy="auto"), "A12"),
+    for kw, item in ((dict(policy="auto"), "A12"),
                      (dict(demand_paged=True), "A12"),
+                     (dict(mesh=object()), "A16"),
                      (dict(edge_paged=False), "A5")):
         with pytest.raises(NotImplementedError, match=item):
             TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0,
                                           device="cpu", **kw)
+    eng = TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0, spec_k=2,
+                                        device="cpu")
+    assert eng.spec_k == 2
+    with pytest.raises(NotImplementedError, match="A11"):
+        eng.generate(_prompts(0)[:1], max_new_tokens=2, sampling=object())
