@@ -10,10 +10,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     source, all started together.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
-                    gives it (decode, prefill, speculative verify), the
-                    fused ``int8_matmul`` at deepseek-7b's edge GEMM
-                    shapes; error, kernel / plain times and the roofline
-                    bound.
+                    gives it (decode, prefill, speculative verify), its
+                    tensor-parallel form ``paged_flash_mq_sharded`` at
+                    the same int8 shapes split over 2 and 4 shards of
+                    the one card (per-shard and summed times, the
+                    per-shard bound), the fused ``int8_matmul`` at
+                    deepseek-7b's edge GEMM shapes; error, kernel /
+                    plain times and the roofline bound.
 4. ``quantized_dense`` — the INT8 GEMM's front door at full width on the
                     main path's own activations and layer-0 weights,
                     against its plain version and the f32 product.
@@ -28,14 +31,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     draft/verify rounds (``spec_k=4``), full width and
                     depth: tokens/s, rounds, acceptance, wire bytes, and
                     the launch count the rounds imply; then one
-                    ``torch.profiler`` window of its traffic.
-7. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
+                    ``torch.profiler`` window of its traffic.  Then,
+                    untimed, where the spec stream first leaves the
+                    serial one, with each side's top-2 logit gap there.
+7. ``tp_path``    — the same engine, weights and traffic with the cloud
+                    tensor-parallel over ``make_serve_mesh(model=2)`` on
+                    the one card, serially and with ``spec_k=4`` (three
+                    timed repeats each, a profile of the serial run),
+                    then ``model=4`` serially once: tokens/s, launches,
+                    sharded calls, wire bytes, peak memory; the launch
+                    counts and the serial wire bytes are asserted.
+8. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
                     (or, at a near-tie, the teacher-forced logits); in
                     the INT8 default the ``spec_k=4`` stream must equal
                     the serial one on each device, and the card's
-                    decisions the CPU's up to a tie.
+                    decisions the CPU's up to a tie; at tp = 2 on the
+                    card, the lossless stream against tp = 1 and the
+                    CPU's tp = 2 up to near-ties, and the INT8
+                    ``spec_k=4`` stream equal to the serial one on each
+                    device.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
@@ -329,6 +345,108 @@ def phase_kernels() -> list:
     return results
 
 
+def phase_sharded_kernels() -> list:
+    """``paged_flash_mq_sharded`` (B3) on the one card at deepseek-7b's
+    int8 decode, verify (S = 4) and prefill (S = 128) shapes, split over
+    tp = 2 and 4 shards of ``make_serve_mesh``.  The reference signature
+    (split, one launch per shard, put back together) is held against the
+    plain version on the whole tensors; then each shard's own launch is
+    timed over contiguous kv-head slices cut beforehand (the slicing
+    copies stay outside the timed rows), beside the plain version on the
+    same slices and the shard's bound.  The page pools are made in 4 x
+    the unsharded rows' copies, so a tp = 4 shard's launches still
+    stream from device memory, not from L2."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch.mesh import make_serve_mesh
+    lengths_dec = [160, 0, 97, 131]
+    lengths_ver = [164, 100, 131, 36]
+    shapes = (("decode", 1, lengths_dec, [max(n - 1, 0) for n in lengths_dec],
+               24, 31),
+              ("verify", 4, lengths_ver, [n - 4 for n in lengths_ver], 24, 32),
+              ("prefill", 128, [128, 100, 128, 77], [0] * 4, 8, 33))
+    results = []
+    for name, s, lens, q0, copies, seed in shapes:
+        c = _paged_case(f"deepseek7b_{name}_int8", b=4, s=s, n_heads=32,
+                        n_kv=32, hd=128, page=16, lengths=lens, q_start=q0,
+                        page_dtype=torch.int8, scales=True, seed=seed,
+                        copies=4 * copies)
+        kp, vp = c["pools"][0]
+        args = (c["bt"], c["lens"], c["qs"], c["ks"], c["vs"])
+        plain = PA.paged_attention_mq_ref(c["q"], kp, vp, *args)
+        scale = float(plain.abs().max())
+        tol = KERNEL_TOL * max(scale, 1.0)
+        for tp in (2, 4):
+            launches0 = PA.paged_flash_mq.launches
+            sharded0 = PA.paged_flash_mq_sharded.launches
+            out = PA.paged_flash_mq_sharded(c["q"], kp, vp, *args,
+                                            mesh=make_serve_mesh(model=tp))
+            torch.cuda.synchronize()
+            launches = PA.paged_flash_mq_sharded.launches - sharded0
+            if launches != tp or PA.paged_flash_mq.launches - launches0 != tp:
+                raise AssertionError(f"{c['name']} tp {tp}: {launches} "
+                                     f"sharded launches, expected {tp}")
+            err = float((out - plain).abs().max())
+            if not (math.isfinite(err) and err <= tol):
+                raise AssertionError(f"{c['name']} tp {tp}: sharded vs "
+                                     f"plain max abs err {err} > tol {tol}")
+            zero_rows = (c["lens"] == 0).nonzero().flatten()
+            if len(zero_rows) and float(out[zero_rows].abs().max()) != 0.0:
+                raise AssertionError(f"{c['name']} tp {tp}: length-0 row "
+                                     f"is not 0")
+            hq = 32 // tp
+            shard_rows = []
+            for m in range(tp):
+                h = slice(m * hq, (m + 1) * hq)
+                sq = c["q"][:, :, h].contiguous()
+                pools = [(k_[:, :, h].contiguous(), v_[:, :, h].contiguous())
+                         for k_, v_ in c["pools"]]
+                sks = c["ks"][:, h].contiguous()
+                svs = c["vs"][:, h].contiguous()
+                sargs = (c["bt"], c["lens"], c["qs"], sks, svs)
+                it = iter(range(10 ** 9))
+
+                def run_kernel():
+                    k_, v_ = pools[next(it) % len(pools)]
+                    PA.paged_flash_mq(sq, k_, v_, *sargs)
+
+                def run_plain():
+                    k_, v_ = pools[next(it) % len(pools)]
+                    PA.paged_attention_mq_ref(sq, k_, v_, *sargs)
+
+                plain_ms = graph_ms(run_plain)
+                kernel_ms = graph_ms(run_kernel)
+                kernel_ms = min(kernel_ms, graph_ms(run_kernel))
+                plain_ms = min(plain_ms, graph_ms(run_plain))
+                nbytes, flops = _paged_work(dict(
+                    q=sq, pools=pools[:1], bt=c["bt"], lens=c["lens"],
+                    qs=c["qs"], ks=sks))
+                shard_rows.append((kernel_ms, plain_ms, nbytes, flops))
+                del pools
+            t_bytes = shard_rows[0][2] / HBM_BYTES_PER_S * 1e3
+            t_ops = shard_rows[0][3] / F32_FLOPS * 1e3
+            r = dict(kernel="paged_flash_mq_sharded",
+                     shape=f"{c['name']}_tp{tp}", tp=tp,
+                     q=list(c["q"].shape), pages=list(kp.shape),
+                     shard_pages=[kp.shape[0], kp.shape[1], 32 // tp,
+                                  kp.shape[3]],
+                     max_abs_err=err, max_abs_plain=scale, tol=tol,
+                     launches=launches,
+                     shard_kernel_ms=[x[0] for x in shard_rows],
+                     kernel_ms=statistics.mean(x[0] for x in shard_rows),
+                     sum_kernel_ms=sum(x[0] for x in shard_rows),
+                     plain_ms=statistics.mean(x[1] for x in shard_rows),
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     shard_bytes=shard_rows[0][2],
+                     shard_flops=shard_rows[0][3],
+                     library_ms=None)
+            emit("kernels", **r)
+            results.append(r)
+        del c
+    torch.cuda.empty_cache()
+    return results
+
+
 def _int8_case(name, m, k, n, *, seed, act=None, bias=False,
                requant=False, identity=False):
     """Random int8 operands at one GEMM shape: per-channel weight scales
@@ -604,13 +722,15 @@ def _prompts(n, plen, vocab, seed):
 
 def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
     """One run of ``prompts`` through engine ``e``: the kernels' launch
-    counts are set to 0 just before and read just after, and
-    ``paged_flash_mq``'s must equal ``expect(stats)``, the count the
-    engine's code implies."""
+    counts (and the sharded form's calls) are set to 0 just before and
+    read just after, and ``paged_flash_mq``'s must equal
+    ``expect(stats)``, the count the engine's code implies."""
     from repro_torch.kernels import int8_matmul as IK
     from repro_torch.kernels import paged_attention as PA
     e.stats = type(e.stats)()
     PA.paged_flash_mq.launches = 0
+    PA.paged_flash_mq_sharded.calls = 0
+    PA.paged_flash_mq_sharded.launches = 0
     IK.int8_matmul_cuda.launches = 0
     t0 = time.perf_counter()
     outs = e.generate(prompts, max_new_tokens=max_new)
@@ -627,6 +747,8 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
                for o in outs):
         raise AssertionError(f"{what} produced malformed streams")
     return dict(outs=outs, wall=wall, launches=launches,
+                sharded_calls=PA.paged_flash_mq_sharded.calls,
+                sharded_launches=PA.paged_flash_mq_sharded.launches,
                 int8_matmul_launches=IK.int8_matmul_cuda.launches, stats=st)
 
 
@@ -713,6 +835,10 @@ def phase_main_path(params, cfg) -> dict:
         emit(tag, requests=n_req, max_new=max_new, **profile_window(
             lambda: e.generate(prompts, max_new_tokens=max_new),
             statistics.median(r["wall"] for r in runs[key])))
+    # untimed: the serial decisions, for phase 6's divergence report
+    with _CommittedDecisions(eng, "_cloud_decode") as dec:
+        res["logged_outs"] = eng.generate(prompts, max_new_tokens=max_new)
+    res["decisions"] = dec.at
     del eng, cloud
     torch.cuda.empty_cache()
     res["outs"] = first["outs"]
@@ -765,7 +891,7 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
     # the prefill is the serial engine's own, so first tokens are equal;
     # later tokens may differ at near-ties: the verify runs k rows per
     # slot where the serial step runs one, so its sums round otherwise.
-    # Phase 7 holds the INT8 spec stream to the serial one at 2 layers
+    # Phase 8 holds the INT8 spec stream to the serial one at 2 layers
     if [o[0] for o in first["outs"]] != [o[0] for o in serial]:
         raise AssertionError("spec path: first tokens differ from the "
                              "serial main path's")
@@ -801,13 +927,209 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
          **profile_window(
              lambda: eng.generate(prompts, max_new_tokens=max_new),
              statistics.median(walls)))
+    with _CommittedDecisions(eng, "_verify_impl") as dec:
+        logged = eng.generate(prompts, max_new_tokens=max_new)
+    emit("spec_divergence", **_divergence(
+        main_res["logged_outs"], main_res["decisions"], logged, dec.at))
     del eng
     torch.cuda.empty_cache()
+    res["outs"] = first["outs"]
     return res
 
 
+class _CommittedDecisions:
+    """While active, record each decision ``eng``'s cloud makes inside
+    its method ``phase`` (the serial ``_cloud_decode`` or the spec
+    ``_verify_impl``): argmax, top logit and top-2 gap of output index
+    ``c + j`` of the request in each live slot, ``c`` being its tokens
+    committed before the round and ``j`` the row's place in the round.
+    A position a round computes but does not commit is computed again by
+    a later round, so each position's last record is its committed
+    one."""
+
+    def __init__(self, eng, phase: str):
+        self.eng, self.phase, self.at = eng, phase, {}
+
+    def __enter__(self):
+        from repro_torch.models import transformer as TF
+        eng, orig_head = self.eng, TF.lm_head
+        orig_phase = getattr(eng, self.phase)
+        inside = [False]
+
+        def head(tail, x):
+            logits = orig_head(tail, x)
+            if inside[0]:
+                top, idx = torch.topk(logits.float(), 2, dim=-1)
+                top, idx = top.cpu().numpy(), idx.cpu().numpy()
+                for slot, (r, c) in eng._sched_active.items():
+                    for j in range(top.shape[1]):
+                        self.at[r.uid, c + j] = (
+                            int(idx[slot, j, 0]), float(top[slot, j, 0]),
+                            float(top[slot, j, 0] - top[slot, j, 1]))
+            return logits
+
+        def phase(*args, **kw):
+            inside[0] = True
+            try:
+                return orig_phase(*args, **kw)
+            finally:
+                inside[0] = False
+
+        self._tf, self._orig_head = TF, orig_head
+        TF.lm_head = head
+        setattr(eng, self.phase, phase)
+        return self
+
+    def __exit__(self, *exc):
+        self._tf.lm_head = self._orig_head
+        delattr(self.eng, self.phase)
+
+
+def _divergence(serial, serial_at, spec, spec_at) -> dict:
+    """Where each request's spec stream first leaves its serial stream:
+    the position, both tokens, each engine's top-2 gap there, and the
+    largest difference of the two engines' top logits over the agreeing
+    positions before it (the noise a tie has to be read against).  A
+    report: nothing here is asserted."""
+    rows = []
+    for uid, (a, b) in enumerate(zip(serial, spec)):
+        i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+        row = dict(request=uid, first_divergent=i,
+                   agreement=sum(x == y for x, y in zip(a, b)) / len(a))
+        if i is not None:
+            sa, sb = serial_at[uid, i], spec_at[uid, i]
+            noise = max((abs(serial_at[uid, j][1] - spec_at[uid, j][1])
+                         for j in range(1, i)), default=0.0)
+            row.update(serial_token=a[i], spec_token=b[i],
+                       serial_top2_gap=sa[2], spec_top2_gap=sb[2],
+                       top_logit_noise_before=noise,
+                       gap_within_noise=min(sa[2], sb[2]) <= noise)
+        rows.append(row)
+    gaps = sorted(v[2] for v in serial_at.values())
+    return dict(requests=rows, diverged=sum(r["first_divergent"] is not None
+                                            for r in rows),
+                median_serial_top2_gap=gaps[len(gaps) // 2] if gaps else None)
+
+
 # ---------------------------------------------------------------------------
-# Phase 7: the same engine on the card and on the CPU
+# Phase 7: the cloud tensor-parallel on the one card
+# ---------------------------------------------------------------------------
+
+
+def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
+    """The main path's engine, weights and traffic with the cloud suffix,
+    its head and its INT8 page pool split over ``make_serve_mesh(model=
+    tp)`` shards of the one card (the edge unchanged on the card):
+    serially at tp = 2 (three timed repeats, then a profile window),
+    with ``spec_k=4`` at tp = 2 (three repeats), serially at tp = 4
+    (one).  Every cloud layer's attention is one sharded call of tp
+    kernel launches, so ``paged_flash_mq`` launches (prefill calls +
+    steps) x (edge layers + tp x cloud layers) times serially — 2,880 at
+    tp = 2 and 4,800 at tp = 4 for this traffic, against 1,920 at
+    tp = 1 — and ``prefill calls x (layers + tp x cloud layers) + rounds
+    x (k x layers + tp x cloud layers)`` with rounds; asserted, with the
+    sharded calls and launches.  The serial wire bytes must equal the
+    tp = 1 engine's: the mesh moves no byte of the link."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.engine import CollaborativeServingEngine
+
+    n_req, plen, max_new, cut = 8, 128, 32, 14
+    channel = Channel.from_kbps(250.0, rtt_ms=20.0)
+    prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
+    n_layers = cfg.n_layers
+    out = {}
+    for tag, tp, k, reps in (("serial_tp2", 2, 1, 3), ("spec_tp2", 2, 4, 3),
+                             ("serial_tp4", 4, 1, 1)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = CollaborativeServingEngine(
+            params, cfg, cut_layer=cut, channel=channel,
+            max_len=plen + max_new + 24, spec_k=k,
+            mesh=make_serve_mesh(model=tp))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_cloud = eng.n_cloud
+        eng.generate(prompts[:1], max_new_tokens=2)           # warm-up
+        torch.cuda.synchronize()
+        if k == 1:
+            def expect(st, tp=tp, n_cloud=n_cloud):
+                return ((st.prefill_calls + st.decode_steps)
+                        * (n_layers - n_cloud + tp * n_cloud))
+
+            def rounds(st):
+                return st.decode_steps
+        else:
+            def expect(st, tp=tp, n_cloud=n_cloud, k=k):
+                return (st.prefill_calls * (n_layers + tp * n_cloud)
+                        + st.spec_rounds * (k * n_layers + tp * n_cloud))
+
+            def rounds(st):
+                return st.spec_rounds
+        runs = []
+        for _ in range(reps):
+            r = _timed(eng, prompts, max_new, cfg.vocab, expect,
+                       f"tp path {tag}")
+            st = r["stats"]
+            calls = n_cloud * (st.prefill_calls + rounds(st))
+            if (r["sharded_calls"], r["sharded_launches"]) != (calls,
+                                                                tp * calls):
+                raise AssertionError(
+                    f"tp path {tag}: {r['sharded_calls']} sharded calls and "
+                    f"{r['sharded_launches']} shard launches, expected "
+                    f"{calls} and {tp * calls}")
+            runs.append(r)
+        first, st = runs[0], runs[0]["stats"]
+        if k == 1 and st.transmitted_bytes != main_res["transmitted_bytes"]:
+            raise AssertionError(
+                f"tp path {tag}: {st.transmitted_bytes} wire bytes, the "
+                f"tp = 1 engine's {main_res['transmitted_bytes']}")
+        base = main_res["outs"] if k == 1 else spec_res["outs"]
+        walls = [r["wall"] for r in runs]
+        n_tok = sum(len(o) for o in first["outs"])
+        res = dict(arch=cfg.name, layers=n_layers, cut=cut, tp=tp, spec_k=k,
+                   cloud_blocks=n_cloud, requests=n_req, slots=4,
+                   prompt_len=plen, max_new=max_new, reduced=None,
+                   setup_s=setup_s, reps=reps, tokens=n_tok,
+                   wall_s_reps=walls,
+                   tokens_per_s_reps=[n_tok / w for w in walls],
+                   tokens_per_s=n_tok / statistics.median(walls),
+                   tp1_tokens_per_s=(main_res if k == 1
+                                     else spec_res)["tokens_per_s"],
+                   streams_repeat_identical=all(r["outs"] == first["outs"]
+                                                for r in runs),
+                   token_agreement_with_tp1=sum(
+                       a == b for o, o1 in zip(first["outs"], base)
+                       for a, b in zip(o, o1)) / n_tok,
+                   prefill_calls=st.prefill_calls,
+                   decode_steps=st.decode_steps, spec_rounds=st.spec_rounds,
+                   acceptance_rate=(st.acceptance_rate() if k > 1
+                                    else None),
+                   launches=first["launches"],
+                   expected_launches=expect(st),
+                   sharded_calls=first["sharded_calls"],
+                   sharded_launches=first["sharded_launches"],
+                   int8_matmul_launches=first["int8_matmul_launches"],
+                   transmitted_bytes=st.transmitted_bytes,
+                   tp1_transmitted_bytes=(main_res if k == 1
+                                          else spec_res)["transmitted_bytes"],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   first_output=first["outs"][0])
+        emit("tp_path", run=tag, **res)
+        if tag == "serial_tp2":
+            emit("tp_path_profile", run=tag, requests=n_req, max_new=max_new,
+                 **profile_window(
+                     lambda: eng.generate(prompts, max_new_tokens=max_new),
+                     statistics.median(walls)))
+        out[tag] = res
+        del eng, runs, first
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -921,10 +1243,15 @@ def phase_path_parity() -> None:
       as the JAX engines' do (the verify's INT8 page writes at S = 4,
       the draft cache and the accept counts feed every committed
       token); the card's serial decisions are held to the CPU's up to
-      the first tie (``_int8_divergence``)."""
+      the first tie (``_int8_divergence``);
+    * the cloud tensor-parallel over ``make_serve_mesh(model=2)``: the
+      card's lossless stream against the card's tp = 1 stream and the
+      CPU's tp = 2 stream, up to near-ties; in the INT8 default the
+      ``spec_k=4`` stream equal to the serial one on each device."""
     import dataclasses
     from repro_torch.bridge import tree_map
     from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve.engine import CollaborativeServingEngine
 
@@ -944,7 +1271,14 @@ def phase_path_parity() -> None:
             ("lossless_spec", "cuda", p_gpu, dict(lossless, spec_k=4)),
             ("int8", "cuda", p_gpu, {}), ("int8", "cpu", p_cpu, {}),
             ("int8_spec", "cuda", p_gpu, dict(spec_k=4)),
-            ("int8_spec", "cpu", p_cpu, dict(spec_k=4))):
+            ("int8_spec", "cpu", p_cpu, dict(spec_k=4)),
+            ("lossless_tp2", "cuda", p_gpu, lossless),
+            ("lossless_tp2", "cpu", p_cpu, lossless),
+            ("int8_tp2", "cuda", p_gpu, {}), ("int8_tp2", "cpu", p_cpu, {}),
+            ("int8_spec_tp2", "cuda", p_gpu, dict(spec_k=4)),
+            ("int8_spec_tp2", "cpu", p_cpu, dict(spec_k=4))):
+        if tag.endswith("_tp2"):
+            kw = dict(kw, mesh=make_serve_mesh(model=2, device=dev))
         eng = CollaborativeServingEngine(p, cfg, device=dev, cut_layer=0,
                                          max_len=64, **kw)
         with _Decisions() as d:
@@ -955,10 +1289,16 @@ def phase_path_parity() -> None:
     checked = {tag: _near_ties(runs[tag, "cuda"][0], cpu_serial, prompts,
                                p_gpu, p_cpu, cfg)
                for tag in ("lossless", "lossless_spec")}
+    tp2 = runs["lossless_tp2", "cuda"][0]
+    checked["tp2_vs_tp1"] = _near_ties(tp2, runs["lossless", "cuda"][0],
+                                       prompts, p_gpu, p_cpu, cfg)
+    checked["tp2_vs_cpu_tp2"] = _near_ties(
+        tp2, runs["lossless_tp2", "cpu"][0], prompts, p_gpu, p_cpu, cfg)
     for dev in ("cuda", "cpu"):
-        if runs["int8_spec", dev][0] != runs["int8", dev][0]:
-            raise AssertionError(f"INT8 spec stream differs from the "
-                                 f"serial one on {dev}")
+        for sfx in ("", "_tp2"):
+            if runs["int8_spec" + sfx, dev][0] != runs["int8" + sfx, dev][0]:
+                raise AssertionError(f"INT8 spec stream differs from the "
+                                     f"serial one on {dev}{sfx}")
     div = _int8_divergence(logs["int8", "cuda"], logs["int8", "cpu"])
     card, cpu = runs["int8", "cuda"][0], runs["int8", "cpu"][0]
     emit("path_parity", arch=cfg.name, layers=cfg.n_layers,
@@ -974,7 +1314,15 @@ def phase_path_parity() -> None:
          int8_card_vs_cpu_identical=card == cpu,
          int8_card_vs_cpu_first_token_equal=[a[0] == b[0]
                                              for a, b in zip(card, cpu)],
-         int8_divergence=div, int8_noise_tol=INT8_NOISE_TOL)
+         int8_divergence=div, int8_noise_tol=INT8_NOISE_TOL,
+         tp2_identical_to_tp1=tp2 == runs["lossless", "cuda"][0],
+         tp2_near_ties_vs_tp1=checked["tp2_vs_tp1"],
+         tp2_identical_to_cpu_tp2=tp2 == runs["lossless_tp2", "cpu"][0],
+         tp2_near_ties_vs_cpu_tp2=checked["tp2_vs_cpu_tp2"],
+         int8_tp2_spec_equals_serial=True,
+         int8_tp2_equals_tp1={dev: runs["int8_tp2", dev][0]
+                              == runs["int8", dev][0]
+                              for dev in ("cuda", "cpu")})
 
 
 def main(argv=None) -> int:
@@ -996,6 +1344,7 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     kres = phase_kernels()
+    sres = phase_sharded_kernels()
     ires = phase_int8_kernels()
     if args.only == "kernels":
         return 0
@@ -1012,6 +1361,7 @@ def main(argv=None) -> int:
     phase_quantized_dense(params, cfg)
     main_res = phase_main_path(params, cfg)
     spec_res = phase_spec_path(params, cfg, main_res)
+    tp_res = phase_tp_path(params, cfg, main_res, spec_res)
     del params
     torch.cuda.empty_cache()
     phase_path_parity()
@@ -1019,6 +1369,8 @@ def main(argv=None) -> int:
     # of 4 slots (int8_matmul: gate/up at M = 4; the serving path does
     # not call it, so its main-path count is 0 — read, not assumed)
     dec = next(r for r in kres if r["shape"] == "deepseek7b_decode_int8")
+    sdec = next(r for r in sres
+                if r["shape"] == "deepseek7b_decode_int8_tp2")
     mm = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
     print(json.dumps({"kernels": [{
         "name": "paged_flash_mq", "route": "cuda",
@@ -1030,6 +1382,19 @@ def main(argv=None) -> int:
         "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": None, "shape": dec["shape"]}, {
+        # B3: per-shard numbers (each shard's launch, its bound); the
+        # launches are the shard launches of the serial tp = 2 run
+        "name": "paged_flash_mq_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:304",
+        "launches": tp_res["serial_tp2"]["sharded_launches"],
+        "tp4_launches": tp_res["serial_tp4"]["sharded_launches"],
+        "spec_path_launches": tp_res["spec_tp2"]["sharded_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in sres),
+        "ms": sdec["kernel_ms"], "sum_ms": sdec["sum_kernel_ms"],
+        "plain_ms": sdec["plain_ms"], "bound_ms": sdec["bound_ms"],
+        "bound_by": sdec["bound_by"], "library_ms": None, "tp": 2,
+        "shape": sdec["shape"]}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:139",

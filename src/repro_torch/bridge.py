@@ -18,9 +18,13 @@ __all__ = ["params_from_numpy", "qparams_from_numpy", "tree_map"]
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of a nested dict (lists — the
+    per-shard entries of a tensor-parallel group — map element by
+    element)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -30,6 +30,14 @@
 // Splitting the page axis across CTAs for decode (flash decoding), TMA
 // loads and tensor-core QK / AV are left for later work.
 //
+// The same kernel is the per-shard launch of the tensor-parallel form,
+// replacing `paged_flash_mq_sharded` / `paged_flash_decode_sharded` of
+// src/repro/kernels/paged_attention.py:304-375 (a shard_map of the Pallas
+// kernel over kv heads): each shard runs it over its own contiguous pool
+// [n_pages, page, n_kv / tp, hd] and scales [B, n_kv / tp], so a decode
+// shard moves 1/tp of the bytes (its bound is the unsharded one / tp) on a
+// grid of B * n_kv / tp CTAs.
+//
 // Build:  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //         -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
 // The plain C entry point returns cudaGetLastError() after the launch.

@@ -19,6 +19,13 @@ speculative verify.
 * ``paged_attention`` / ``paged_multiquery_attention`` dispatch on the
   tensor's device alone: a CPU tensor takes the plain version, a CUDA
   tensor launches the kernel or raises — nothing falls back.
+* ``paged_flash_mq_sharded`` / ``paged_flash_decode_sharded`` are the
+  tensor-parallel form (the reference's ``shard_map`` over kv heads):
+  each shard launches the same kernel, on its own device, over its own
+  contiguous kv-head slice of the pool.  ``paged_flash_mq_per_shard`` is
+  that launch for shards whose tensors already live apart (the model
+  layers' path); ``set_tp_mesh`` routes both front doors through the
+  sharded form.
 
 The plain version re-masks the softmax weights and divides by
 ``max(l, 1e-30)`` like the kernel, so a row with no valid position gives
@@ -39,7 +46,9 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["paged_attention", "paged_multiquery_attention",
-           "paged_flash_mq", "paged_attention_ref", "paged_attention_mq_ref"]
+           "paged_flash_mq", "paged_attention_ref", "paged_attention_mq_ref",
+           "paged_flash_mq_sharded", "paged_flash_decode_sharded",
+           "paged_flash_mq_per_shard", "set_tp_mesh"]
 
 # finite stand-in for -inf: (-1e30) - (-1e30) = 0 keeps exp() NaN-free on
 # fully-masked rows, where a true -inf would poison the running max
@@ -195,11 +204,10 @@ def paged_flash_mq(q: torch.Tensor, k_pages: torch.Tensor,
 paged_flash_mq.launches = 0
 
 
-def paged_multiquery_attention(q, k_pages, v_pages, block_tables, lengths,
-                               q_start, k_scale=None, v_scale=None
-                               ) -> torch.Tensor:
-    """Front door for an S-query block: the plain version for a CPU
-    tensor, the kernel for a CUDA tensor."""
+def _local(q, k_pages, v_pages, block_tables, lengths, q_start,
+           k_scale=None, v_scale=None) -> torch.Tensor:
+    """One device's read: the plain version for a CPU tensor, the kernel
+    for a CUDA tensor."""
     if not q.is_cuda:
         return paged_attention_mq_ref(q, k_pages, v_pages, block_tables,
                                       lengths, q_start, k_scale, v_scale)
@@ -208,6 +216,127 @@ def paged_multiquery_attention(q, k_pages, v_pages, block_tables, lengths,
                           lengths.to(torch.int32).contiguous(),
                           q_start.to(torch.int32).contiguous(),
                           k_scale, v_scale)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the reference's ``paged_flash_mq_sharded``)
+# ---------------------------------------------------------------------------
+#
+# Replaces src/repro/kernels/paged_attention.py:304-375, a ``shard_map``
+# of the Pallas kernel over kv heads with no collective.  Attention is
+# independent per kv head, so each shard launches the hand-written kernel
+# of csrc/paged_attention.cu over its own contiguous pool
+# [n_pages, page, n_kv / tp, hd] and scales [B, n_kv / tp]: at decode a
+# shard moves 1/tp of the pool's bytes, so its bound is the unsharded
+# bound / tp.  A decode shard's grid is (B, n_kv / tp, 1) CTAs.
+
+
+def paged_flash_mq_per_shard(qs, k_pages, v_pages, block_tables, lengths,
+                             q_start, k_scales, v_scales):
+    """Launch the kernel once per shard, each on its own device's
+    tensors: ``qs[i]`` [B_i, S, H_i, hd] over pool ``k_pages[i]`` /
+    ``v_pages[i]`` with scales ``k_scales[i]`` / ``v_scales[i]`` (None,
+    [n_kv_i] or [B_i, n_kv_i]) → the list of shard outputs.  Every
+    argument is a list with one entry per shard.  Counts one call in
+    ``paged_flash_mq_sharded.calls`` and one launch per CUDA shard in
+    ``paged_flash_mq_sharded.launches``; a CPU shard takes the plain
+    version."""
+    paged_flash_mq_sharded.calls += 1
+    outs = []
+    for args in zip(qs, k_pages, v_pages, block_tables, lengths, q_start,
+                    k_scales, v_scales):
+        dev = args[0].device
+        q, kp, vp, bt, ln, q0, ks, vs = (
+            None if t is None else t.to(dev) for t in args)
+        outs.append(_local(q, kp, vp, bt, ln, q0, ks, vs))
+        if q.is_cuda:
+            paged_flash_mq_sharded.launches += 1
+    return outs
+
+
+def paged_flash_mq_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, q_start: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None, *,
+                           mesh) -> torch.Tensor:
+    """Tensor-parallel ``paged_flash_mq`` with the reference's signature:
+    whole tensors in, the whole [B, S, n_heads, hd] out on ``q``'s
+    device.  Query heads, the pool's kv heads and the scales split over
+    the mesh's ``model`` axis, batch rows over ``data`` when ``B``
+    divides it (shard ``(d, m)`` on ``mesh.devices[d * model + m]``);
+    each shard's slice is copied into a contiguous tensor on its device,
+    the kernel runs once per shard (``paged_flash_mq_per_shard``), and
+    the outputs are put back together in shard order.  With ``tp == 1``
+    or ``n_kv % tp != 0`` this is the unsharded read, as in the
+    reference, and counts no sharded call."""
+    b, s, n_heads, _ = q.shape
+    n_kv = k_pages.shape[2]
+    tp = mesh.model
+    if tp == 1 or n_kv % tp != 0:
+        return _local(q, k_pages, v_pages, block_tables, lengths, q_start,
+                      k_scale, v_scale)
+    ks = _norm_scales(k_scale, b, n_kv, q.device)
+    vs = _norm_scales(v_scale, b, n_kv, q.device)
+    dp = mesh.data if b % mesh.data == 0 else 1
+    rows, hq, hk = b // dp, n_heads // tp, n_kv // tp
+    shards = []
+    for d in range(dp):
+        r = slice(d * rows, (d + 1) * rows)
+        for m, dev in enumerate(mesh.model_devices(d)):
+            h, kv = slice(m * hq, (m + 1) * hq), slice(m * hk, (m + 1) * hk)
+            shards.append(tuple(t.contiguous().to(dev) for t in (
+                q[r, :, h], k_pages[:, :, kv], v_pages[:, :, kv],
+                block_tables[r], lengths[r], q_start[r], ks[r, kv],
+                vs[r, kv])))
+    outs = paged_flash_mq_per_shard(*(list(a) for a in zip(*shards)))
+    outs = [o.to(q.device) for o in outs]
+    return torch.cat([torch.cat(outs[d * tp:(d + 1) * tp], dim=2)
+                      for d in range(dp)], dim=0)
+
+
+paged_flash_mq_sharded.calls = 0
+paged_flash_mq_sharded.launches = 0
+
+
+def paged_flash_decode_sharded(q, k_pages, v_pages, block_tables, lengths,
+                               k_scale=None, v_scale=None, *, mesh
+                               ) -> torch.Tensor:
+    """Tensor-parallel decode step (the S = 1 case of
+    ``paged_flash_mq_sharded``, ``q`` [B, n_heads, hd])."""
+    out = paged_flash_mq_sharded(q[:, None], k_pages, v_pages, block_tables,
+                                 lengths, lengths - 1, k_scale, v_scale,
+                                 mesh=mesh)
+    return out[:, 0]
+
+
+# Deployment hook: a deployment sets its serving mesh once and both front
+# doors below route every call through the sharded form.  The engines do
+# not set it — they hold per-shard pools and call
+# ``paged_flash_mq_per_shard`` themselves — since a module-wide mesh
+# would also shard the unsharded engines of the same process.
+_TP_MESH = None
+
+
+def set_tp_mesh(mesh) -> None:
+    """Install (or clear, with None) the mesh the front doors shard
+    over."""
+    global _TP_MESH
+    _TP_MESH = mesh
+
+
+def paged_multiquery_attention(q, k_pages, v_pages, block_tables, lengths,
+                               q_start, k_scale=None, v_scale=None
+                               ) -> torch.Tensor:
+    """Front door for an S-query block: the plain version for a CPU
+    tensor, the kernel for a CUDA tensor; under ``set_tp_mesh``, the
+    sharded form."""
+    if _TP_MESH is not None:
+        return paged_flash_mq_sharded(q, k_pages, v_pages, block_tables,
+                                      lengths, q_start, k_scale, v_scale,
+                                      mesh=_TP_MESH)
+    return _local(q, k_pages, v_pages, block_tables, lengths, q_start,
+                  k_scale, v_scale)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths,

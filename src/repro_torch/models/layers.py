@@ -13,21 +13,46 @@ its operands implicitly, ``dense`` does so explicitly.
 
 Only the paged KV cache form of ``attention`` is ported; the dense
 caches, ``_sdpa``, MoE and the vision layers come with later slices.
+
+Tensor parallelism: ``attention`` and ``swiglu`` take either one
+parameter dict or a list with one per tensor-parallel shard
+(``serve.sharding``): each shard computes its heads' (or FFN columns')
+share of the output from the whole input on its own device, and the
+shards' partial outputs are summed by ``all_reduce_sum`` onto the
+input's device.  One dict is the tp = 1 case of the same code.  Shards
+run the fp cloud only: the edge's fake-quant lattice is computed over
+whole weights and whole activations, which a shard does not see.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import compute_qparams, fake_quant
-from repro_torch.kernels.paged_attention import (paged_attention,
+from repro_torch.kernels.paged_attention import (paged_flash_mq_per_shard,
                                                  paged_multiquery_attention)
+from repro_torch.serve.sharding import all_reduce_sum
 
 Params = Dict[str, Any]
+Sharded = Union[Params, List[Params]]
+
+
+def shards(p: Any) -> list:
+    """A tensor-parallel group's per-shard entries: a list as it is, one
+    unsplit dict as the list of its single shard."""
+    return p if isinstance(p, list) else [p]
+
+
+def _shard_inputs(p: Sharded, qctx) -> list:
+    parts = shards(p)
+    if qctx is not None and len(parts) > 1:
+        raise ValueError("tensor-parallel shards run the fp cloud only: "
+                         "the fake-quant lattice needs whole weights")
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -144,36 +169,49 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
-def swiglu(p: Params, x: torch.Tensor, *,
+def swiglu(p: Sharded, x: torch.Tensor, *,
            qctx: Optional[QuantCtx] = None) -> torch.Tensor:
-    h = dense(p["wi"], x, qctx=qctx)
-    g = F.silu(dense(p["wg"], x, qctx=qctx))
-    return dense(p["wo"], h * g, qctx=qctx)
+    """SwiGLU FFN; with a list of shards, each holds a slice of the
+    ``wi``/``wg`` columns and the matching ``wo`` rows."""
+    parts = []
+    for sp in _shard_inputs(p, qctx):
+        xs = x.to(sp["wi"]["w"].device)
+        h = dense(sp["wi"], xs, qctx=qctx)
+        g = F.silu(dense(sp["wg"], xs, qctx=qctx))
+        parts.append(dense(sp["wo"], h * g, qctx=qctx))
+    return all_reduce_sum(parts)[0]
 
 
 # -- attention (paged KV cache) -----------------------------------------------
 
 
-def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
+def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
               rope: Tuple[torch.Tensor, torch.Tensor],
-              kv_cache: Dict[str, torch.Tensor],
+              kv_cache: Union[Dict[str, torch.Tensor],
+                              List[Dict[str, torch.Tensor]]],
               cache_index: Union[int, torch.Tensor],
               block_tables: torch.Tensor,
               qctx: Optional[QuantCtx] = None,
               calibrate_kv: bool = False,
               kv_lengths: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              ) -> Tuple[torch.Tensor, Any]:
     """Causal GQA attention over a paged KV cache (``"k_pages"`` key):
     the new K/V are written into the block-table pages, then every query
-    reads the pages back through the paged-attention front door.
+    reads the pages back through the paged-attention kernel.
     ``cache_index`` is an int position shared by the batch (prefill) or
-    a [B] tensor of per-slot positions (decode).  The dense caches come
-    with a later slice (ROADMAP A5)."""
+    a [B] tensor of per-slot positions (decode).  With a list of ``tp``
+    shards, shard i holds the ``wq``/``wk``/``wv`` columns and ``wo``
+    rows of kv heads ``[i·n_kv/tp, (i+1)·n_kv/tp)`` (and their query
+    groups) and ``kv_cache`` is the list of the shards' own pools.  The
+    dense caches come with a later slice (ROADMAP A5)."""
+    parts = _shard_inputs(p, qctx)
+    caches = shards(kv_cache)
+    tp = len(parts)
+    if len(caches) != tp:
+        raise ValueError(f"{tp} attention shards but {len(caches)} caches")
     b, s, _ = x.shape
-    hd = p["wq"]["w"].shape[1] // n_heads
-    qh = dense(p["wq"], x, qctx=qctx).reshape(b, s, n_heads, hd)
-    kh = dense(p["wk"], x, qctx=qctx).reshape(b, s, n_kv, hd)
-    vh = dense(p["wv"], x, qctx=qctx).reshape(b, s, n_kv, hd)
+    n_heads, n_kv = n_heads // tp, n_kv // tp
+    hd = parts[0]["wq"]["w"].shape[1] // n_heads
     vec_index = torch.is_tensor(cache_index) and cache_index.ndim == 1
     cos, sin = rope
     if vec_index:
@@ -185,29 +223,76 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     else:
         i0 = int(cache_index)
         cos_q, sin_q = cos[i0:i0 + s], sin[i0:i0 + s]
-    qh = apply_rope(qh, cos_q, sin_q)
-    kh = apply_rope(kh, cos_q, sin_q)
+    qs, ks, vs = [], [], []
+    for sp in parts:
+        dev = sp["wq"]["w"].device
+        xs, c, sn = x.to(dev), cos_q.to(dev), sin_q.to(dev)
+        qh = dense(sp["wq"], xs, qctx=qctx).reshape(b, s, n_heads, hd)
+        kh = dense(sp["wk"], xs, qctx=qctx).reshape(b, s, n_kv, hd)
+        qs.append(apply_rope(qh, c, sn))
+        ks.append(apply_rope(kh, c, sn))
+        vs.append(dense(sp["wv"], xs, qctx=qctx).reshape(b, s, n_kv, hd))
 
-    out, new_cache = _paged_cache_attention(
-        kv_cache, qh, kh, vh, block_tables=block_tables,
+    outs, new_caches = _paged_cache_attention(
+        caches, qs, ks, vs, block_tables=block_tables,
         cache_index=cache_index, vec_index=vec_index,
         calibrate_kv=calibrate_kv, kv_lengths=kv_lengths, dtype=x.dtype)
-    out = out.reshape(b, s, n_heads * hd)
-    return dense(p["wo"], out, qctx=qctx), new_cache
+    out = all_reduce_sum([dense(sp["wo"], o.reshape(b, s, n_heads * hd),
+                                qctx=qctx)
+                          for sp, o in zip(parts, outs)])[0]
+    return out, (new_caches if isinstance(kv_cache, list)
+                 else new_caches[0])
 
 
-def _paged_cache_attention(cache: Dict[str, torch.Tensor], qh, kh, vh, *,
-                           block_tables: torch.Tensor,
-                           cache_index: torch.Tensor, vec_index: bool,
-                           calibrate_kv: bool,
+def _paged_cache_attention(caches: List[Dict[str, torch.Tensor]], qhs, khs,
+                           vhs, *, block_tables: torch.Tensor,
+                           cache_index: Union[int, torch.Tensor],
+                           vec_index: bool, calibrate_kv: bool,
                            kv_lengths: Optional[torch.Tensor], dtype
-                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Write new K/V into block-table pages, then attend.
+                           ) -> Tuple[List[torch.Tensor],
+                                      List[Dict[str, torch.Tensor]]]:
+    """Write new K/V into block-table pages, then attend — per shard.
 
-    qh/kh/vh: [B, S, H(, kv), D] post-RoPE.  The pages of ``cache`` are
-    updated in place (the JAX reference returns updated copies and
-    donates the old buffers); the returned dict carries the same page
-    tensors plus the scales used."""
+    ``qhs``/``khs``/``vhs``: one [B, S, H(, kv), D] post-RoPE tensor per
+    shard, on that shard's device, beside its cache in ``caches``.  The
+    pages are updated in place (the JAX reference returns updated
+    copies and donates the old buffers); the returned dicts carry the
+    same page tensors plus the scales used.  One shard reads through the
+    front door (the reference's ``paged_attention`` path); several read
+    through one tensor-parallel call, each shard launching the kernel
+    over its own pool (the reference's ``paged_flash_mq_sharded``)."""
+    reads, new_caches = [], []
+    for cache, qh, kh, vh in zip(caches, qhs, khs, vhs):
+        dev = kh.device
+        bt = block_tables.to(dev)
+        index = cache_index.to(dev) if vec_index else cache_index
+        kv_len = None if kv_lengths is None else kv_lengths.to(dev)
+        ks, vs, new_cache = _write_pages(cache, kh, vh, bt, index,
+                                         vec_index, calibrate_kv, kv_len)
+        # query i of row b sits at q_start[b] + i; ``kv_lengths`` (true
+        # prompt lengths) keeps bucket padding out of a prefill's read,
+        # and at decode the lengths include the token just written
+        b, s = kh.shape[:2]
+        start = index if vec_index else torch.full(
+            (b,), int(index), dtype=torch.int32, device=dev)
+        lengths = (start + s) if kv_len is None else kv_len
+        reads.append((qh.to(torch.float32), cache["k_pages"],
+                      cache["v_pages"], bt, lengths.to(torch.int32), start,
+                      ks, vs))
+        new_caches.append(new_cache)
+    if len(reads) == 1:
+        outs = [paged_multiquery_attention(*reads[0])]
+    else:
+        outs = paged_flash_mq_per_shard(*(list(a) for a in zip(*reads)))
+    return [o.to(dtype) for o in outs], new_caches
+
+
+def _write_pages(cache: Dict[str, torch.Tensor], kh, vh, block_tables,
+                 cache_index, vec_index: bool, calibrate_kv: bool,
+                 kv_lengths: Optional[torch.Tensor]):
+    """Quantize (INT8 pages) and scatter one shard's new K/V into its
+    pool → (k scale, v scale — None for fp pages — and the new cache
+    dict)."""
     b, s = kh.shape[:2]
     page_size = cache["k_pages"].shape[1]
     quantized = "k_scale" in cache
@@ -256,28 +341,7 @@ def _paged_cache_attention(cache: Dict[str, torch.Tensor], qh, kh, vh, *,
     cache["v_pages"].index_put_((page, off), v_w)
 
     new_cache = {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
-    if quantized:
-        new_cache["k_scale"], new_cache["v_scale"] = ks, vs
-    kscale = ks if quantized else None
-    vscale = vs if quantized else None
-
-    if s == 1:
-        # decode: lengths include the token just written
-        vec = cache_index if vec_index else torch.full(
-            (b,), int(cache_index), dtype=torch.int32, device=dev)
-        out = paged_attention(qh[:, 0].to(torch.float32), cache["k_pages"],
-                              cache["v_pages"], block_tables, vec + 1,
-                              kscale, vscale)
-        return out[:, None].to(dtype), new_cache
-
-    # q-block read (multi-token prefill): query i of row b sits at
-    # q_start[b] + i; ``kv_lengths`` (true prompt lengths) keeps bucket
-    # padding out of the read
-    start = cache_index if vec_index else torch.full(
-        (b,), int(cache_index), dtype=torch.int32, device=dev)
-    lengths = (start + s) if kv_lengths is None else kv_lengths
-    out = paged_multiquery_attention(qh.to(torch.float32), cache["k_pages"],
-                                     cache["v_pages"], block_tables,
-                                     lengths.to(torch.int32), start, kscale,
-                                     vscale)
-    return out.to(dtype), new_cache
+    if not quantized:
+        return None, None, new_cache
+    new_cache["k_scale"], new_cache["v_scale"] = ks, vs
+    return ks, vs, new_cache

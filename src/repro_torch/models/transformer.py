@@ -12,7 +12,7 @@ come with later slices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -23,6 +23,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import QuantCtx
 
 Params = Dict[str, Any]
+# a paged KV cache, or the list of a tensor-parallel cloud's shard caches
+Cache = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +88,13 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
 
 def block_apply(p: Params, x: torch.Tensor, cfg: LMConfig, *,
                 rope: Tuple[torch.Tensor, torch.Tensor],
-                cache: Dict[str, torch.Tensor],
+                cache: Cache,
                 cache_index: Union[int, torch.Tensor],
                 block_tables: torch.Tensor,
                 qctx: Optional[QuantCtx] = None,
                 calibrate_kv: bool = False,
                 kv_lengths: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, Cache]:
     h, new_cache = L.attention(
         p["attn"], L.rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, rope=rope, kv_cache=cache, cache_index=cache_index,
@@ -142,47 +144,56 @@ def _n_layers(blocks: Params) -> int:
 
 def run_blocks(blocks: Params, x: torch.Tensor, cfg: LMConfig, *,
                rope: Tuple[torch.Tensor, torch.Tensor],
-               cache: Dict[str, torch.Tensor],
+               cache: Cache,
                cache_index: Union[int, torch.Tensor],
                block_tables: torch.Tensor,
                qctx: Optional[QuantCtx] = None,
                calibrate_kv: bool = False,
                kv_lengths: Optional[torch.Tensor] = None,
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               ) -> Tuple[torch.Tensor, Cache]:
     """Run a sub-range of stacked blocks over hidden states, layer by
     layer, updating ``cache`` (one slice per layer) in place.  Returns
-    ``(x, cache)``; the cache dict is the one passed in."""
-    quantized = "k_scale" in cache
+    ``(x, cache)``; the cache is the one passed in.  Tensor-parallel
+    blocks (``serve.sharding.shard_suffix_blocks``: ``attn``/``mlp``
+    lists of shards) take the list of the shards' caches; the norms and
+    the residual stream stay on ``x``'s device."""
     for i in range(_n_layers(blocks)):
         bp = tree_map(lambda v: v[i], blocks)
-        c = {k: v[i] for k, v in cache.items()}
+        c = tree_map(lambda v: v[i], cache)
         x, new_c = block_apply(bp, x, cfg, rope=rope, cache=c,
                                cache_index=cache_index,
                                block_tables=block_tables, qctx=qctx,
                                calibrate_kv=calibrate_kv,
                                kv_lengths=kv_lengths)
-        if quantized and calibrate_kv:
-            cache["k_scale"][i].copy_(new_c["k_scale"])
-            cache["v_scale"][i].copy_(new_c["v_scale"])
+        if calibrate_kv:
+            for full, new in zip(L.shards(cache), L.shards(new_c)):
+                if "k_scale" in full:
+                    full["k_scale"][i].copy_(new["k_scale"])
+                    full["v_scale"][i].copy_(new["v_scale"])
     return x, cache
 
 
 def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final-norm + untied head over hidden states [B, S, D]."""
-    return L.dense(params["lm_head"], L.rmsnorm(params["final_norm"], x))
+    """Final-norm + untied head over hidden states [B, S, D].  A
+    vocab-split head (a list of shards) gives each shard's logits on its
+    device, concatenated in shard order on ``x``'s device, so an argmax
+    breaks ties as over the whole head."""
+    z = L.rmsnorm(params["final_norm"], x)
+    return torch.cat([L.dense(h, z.to(h["w"].device)).to(x.device)
+                      for h in L.shards(params["lm_head"])], dim=-1)
 
 
 def _rope_for(cfg: LMConfig, cache, block_tables, device):
-    span = block_tables.shape[1] * cache["k_pages"].shape[2]
+    span = block_tables.shape[1] * L.shards(cache)[0]["k_pages"].shape[2]
     return L.rope_table(span, cfg.hd, base=cfg.rope_base, dtype=cfg.dtype,
                         device=device)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
-            cache: Dict[str, torch.Tensor], block_tables: torch.Tensor,
+            cache: Cache, block_tables: torch.Tensor,
             qctx: Optional[QuantCtx] = None,
             last_pos: Optional[torch.Tensor] = None,
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            ) -> Tuple[torch.Tensor, Cache]:
     """Process the full prompt; returns (last-token logits, cache).
     ``last_pos`` [B] is each row's last real token (bucket-padded
     prompts); an INT8 cache calibrates its per-slot scales here."""
@@ -202,10 +213,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
 
 
 def decode_step(params: Params, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor], cache_index: torch.Tensor,
+                cache: Cache, cache_index: torch.Tensor,
                 cfg: LMConfig, *, block_tables: torch.Tensor,
                 qctx: Optional[QuantCtx] = None,
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step: token [B] → logits [B, V]; ``cache_index``
     is the [B] vector of per-slot positions."""
     x = L.embed(params["embed"], token[:, None]).to(cfg.dtype)

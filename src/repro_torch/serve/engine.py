@@ -13,7 +13,11 @@ speculative draft/verify round (``serve.spec``); ``spec_k=1`` is the
 serial step, bit for bit, and ``spec_k="auto"`` takes the starting k from
 ``autotune.spec_k_for_lm``.  ``a_bits=None`` with fp pages on both sides
 is the lossless configuration, whose greedy stream does not depend on
-the cut.
+the cut.  ``mesh`` (``launch.mesh.make_serve_mesh``) runs the cloud
+suffix, its head and its page pool tensor-parallel over the mesh's
+``model`` shards (``serve.sharding``); the edge half runs once, on the
+mesh's first device.  Wire bytes and ``ServeStats`` do not depend on the
+mesh.
 
 Options the slice does not run raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
@@ -28,7 +32,8 @@ import torch
 from repro_torch.bridge import tree_map
 from repro_torch.core.autotune import spec_k_for_lm
 from repro_torch.core.costmodel import Channel
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike
+from repro_torch.launch.mesh import engine_device
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as TF
 from repro_torch.serve.cloud import ServingEngine
@@ -36,6 +41,7 @@ from repro_torch.serve.kvcache import _PagedPool
 from repro_torch.serve.phases import _SplitPhases
 from repro_torch.serve.policy import _CutBank
 from repro_torch.serve.scheduler import _SlotEngine
+from repro_torch.serve.sharding import place_collab_engine
 from repro_torch.serve.spec import _SpecDraftMixin
 from repro_torch.serve.transport import (_MSG_BYTES, _QP_BYTES, _TOK_BYTES,
                                          Transport)
@@ -55,10 +61,12 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                                  _SlotEngine):
     """Paper mode with incremental decode over split, shared-table paged
     KV caches (see the module docstring) on ``device`` (default
-    ``"cuda"``).  ``spec_k="auto"`` picks the starting k with the cost
-    model at ``spec_acceptance``; the reference's self-correction of k
-    from measured acceptance comes with the adaptive policy (ROADMAP
-    A12)."""
+    ``"cuda"``), its cloud half tensor-parallel over the shards of
+    ``mesh`` when one is given (its first device is then the engine's
+    device; ``data > 1`` raises, ROADMAP A16).  ``spec_k="auto"`` picks
+    the starting k with the cost model at ``spec_acceptance``; the
+    reference's self-correction of k from measured acceptance comes with
+    the adaptive policy (ROADMAP A12)."""
 
     def __init__(self, params: Params, cfg: TF.LMConfig, *, cut_layer: int,
                  channel: Optional[Channel] = None, max_len: int = 128,
@@ -70,12 +78,10 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                  policy=None, demand_paged: bool = False,
                  pressure=None, admission=None, mesh=None,
                  device: DeviceLike = None):
-        dev = resolve_device(device)
         for name, value, item in (("policy", policy, "A12"),
                                   ("demand_paged", demand_paged, "A12"),
                                   ("pressure", pressure, "A12"),
-                                  ("admission", admission, "A12"),
-                                  ("mesh", mesh, "A16")):
+                                  ("admission", admission, "A12")):
             if value:
                 raise _unported(f"{name}=...", item)
         if not (edge_paged and cloud_paged):
@@ -83,6 +89,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         if not 0 <= cut_layer < cfg.n_layers:
             raise ValueError(
                 f"cut_layer {cut_layer} outside [0, {cfg.n_layers})")
+        dev = engine_device(mesh, device)
         super().__init__(cfg, max_batch=max_batch, max_len=max_len,
                          device=dev)
         self.transport = Transport(channel)
@@ -101,11 +108,14 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self.edge_int8 = edge_int8
         self.cloud_int8 = cloud_int8
         self.page_size = page_size
+        self.mesh = mesh
 
         params = tree_map(lambda t: t.to(dev), params)
         self.embed = params["embed"]
+        # the edge drafts with the whole head; the cloud's may be split
         self.tail = {"final_norm": params["final_norm"],
                      "lm_head": params["lm_head"]}
+        self.cloud_tail = self.tail
         # act_axis=0: per-slot activation ranges — a shared-batch range
         # would couple each request's Eq.(1) lattice to its neighbours'
         # (and to stale values in idle slots)
@@ -120,8 +130,9 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self._set_cut(cut_layer)
 
     def _set_cut(self, cut: int) -> None:
-        """Partition at ``cut``: weights come out of the bank (views) and
-        the split caches are allocated for the two layer sub-ranges."""
+        """Partition at ``cut``: weights come out of the bank (views), the
+        split caches are allocated for the two layer sub-ranges, and on a
+        mesh the cloud half is placed on its shards."""
         cfg = self.cfg
         self.cut = cut
         self.n_edge = cut + 1
@@ -146,6 +157,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                 paged=True, quantized=self.edge_int8,
                 page_size=self.page_size, num_pages=n_pool,
                 device=self.device)
+        place_collab_engine(self)
 
     def _round_headroom(self) -> int:
         return self.spec_k - 1
@@ -173,7 +185,8 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self.transport.account_blob(
             self.stats, blob, phase="prefill",
             row_elems=plens.astype(np.int64) * self.cfg.d_model)
-        cur, pos = self._cloud_prefill(self.cloud_blocks, self.tail, blob,
+        cur, pos = self._cloud_prefill(self.cloud_blocks, self.cloud_tail,
+                                       blob,
                                        qp, self._cloud_cache, slots_d,
                                        bt_rows, cur, pos, plens_d)
         if self.spec_k > 1:
@@ -190,8 +203,8 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                                      self._edge_cache, pos, bt)
         self.transport.account_blob(self.stats, blob, phase="decode",
                                     rows=n_active)
-        cur, pos = self._cloud_decode(self.cloud_blocks, self.tail, blob, qp,
-                                      self._cloud_cache, pos, bt)
+        cur, pos = self._cloud_decode(self.cloud_blocks, self.cloud_tail,
+                                      blob, qp, self._cloud_cache, pos, bt)
         self.transport.account_downlink(self.stats, n_active)
         return cur, pos
 
@@ -213,7 +226,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                              + _QP_BYTES) + (k - 1) * _TOK_BYTES)
             + _MSG_BYTES, phase="decode")
         toks, n_commit, cur, pos = verify_fn(
-            self.cloud_blocks, self.tail, blobs, scales, zps, drafts,
+            self.cloud_blocks, self.cloud_tail, blobs, scales, zps, drafts,
             self._cloud_cache, pos, bt)
         # the edge needs the accept counts to schedule the next round, so
         # this sync is part of the protocol, not a host-loop artifact

@@ -171,13 +171,17 @@ class _PagedPool:
         return self._dev
 
 
-def _paged_prefill_view(cache: Dict[str, torch.Tensor], n_layers: int,
-                        n: int, n_kv: int) -> Dict[str, torch.Tensor]:
+def _paged_prefill_view(cache, n: int):
     """Group-local view of a paged cache for one prefill call: the shared
     page pool plus fresh scale rows for the ``n``-row group (the prefill
-    calibrates them; scatter back with ``_paged_prefill_merge``)."""
+    calibrates them; scatter back with ``_paged_prefill_merge``).  A
+    tensor-parallel cache (a list of shard caches) gives one view per
+    shard."""
+    if isinstance(cache, list):
+        return [_paged_prefill_view(c, n) for c in cache]
     group = {"k_pages": cache["k_pages"], "v_pages": cache["v_pages"]}
     if "k_scale" in cache:
+        n_layers, _, n_kv = cache["k_scale"].shape
         group["k_scale"] = torch.zeros((n_layers, n, n_kv),
                                        dtype=torch.float32,
                                        device=cache["k_scale"].device)
@@ -185,12 +189,15 @@ def _paged_prefill_view(cache: Dict[str, torch.Tensor], n_layers: int,
     return group
 
 
-def _paged_prefill_merge(cache: Dict[str, torch.Tensor],
-                         group: Dict[str, torch.Tensor],
-                         slots: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _paged_prefill_merge(cache, group, slots: torch.Tensor):
     """Write the group's calibrated scales into the slots' rows (the
-    pages were written in place already)."""
+    pages were written in place already), shard by shard for a
+    tensor-parallel cache."""
+    if isinstance(cache, list):
+        return [_paged_prefill_merge(c, g, slots)
+                for c, g in zip(cache, group)]
     if "k_scale" in cache:
-        cache["k_scale"][:, slots.long()] = group["k_scale"]
-        cache["v_scale"][:, slots.long()] = group["v_scale"]
+        rows = slots.to(cache["k_scale"].device).long()
+        cache["k_scale"][:, rows] = group["k_scale"]
+        cache["v_scale"][:, rows] = group["v_scale"]
     return cache

@@ -4,8 +4,10 @@ boundary lattice and the edge-prefix / cloud-suffix prefill and decode.
 Counterpart of ``repro.serve.phases._SplitPhases`` (greedy phases; the
 sampled variants come with the sampling slice).  Anything mixing it in
 provides ``cfg``, ``max_len``, ``a_bits``, ``edge_int8``/``cloud_int8``,
-``n_edge``/``n_cloud``, ``_edge_qctx`` and ``_rope()``.  Each phase
-updates its paged cache in place and returns the new per-slot state.
+``_edge_qctx`` and ``_rope()``.  Each phase updates its paged cache in
+place and returns the new per-slot state; the cloud phases take the
+engine's tensor-parallel blocks, head and shard caches as they come
+(``serve.sharding``).
 """
 from __future__ import annotations
 
@@ -50,8 +52,7 @@ class _SplitPhases:
         cfg = self.cfg
         s = toks.shape[1]
         x = ML.embed(embed, toks).to(cfg.dtype)
-        group = _paged_prefill_view(cache, self.n_edge, toks.shape[0],
-                                    cfg.n_kv)
+        group = _paged_prefill_view(cache, toks.shape[0])
         h, group = TF.run_blocks(blocks, x, cfg, rope=self._rope(),
                                  cache=group, cache_index=0,
                                  qctx=self._edge_qctx, block_tables=bt_rows,
@@ -71,7 +72,7 @@ class _SplitPhases:
         cfg = self.cfg
         h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2)
         n = h.shape[0]
-        group = _paged_prefill_view(cache, self.n_cloud, n, cfg.n_kv)
+        group = _paged_prefill_view(cache, n)
         x, group = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
                                  cache=group, cache_index=0,
                                  block_tables=bt_rows,

@@ -61,8 +61,7 @@ class _SpecDraftMixin:
         every round from the committed prefix state."""
         cfg = self.cfg
         h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2), locally
-        group = _paged_prefill_view(cache, self.n_cloud, h.shape[0],
-                                    cfg.n_kv)
+        group = _paged_prefill_view(cache, h.shape[0])
         _, group = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
                                  cache=group, cache_index=0,
                                  qctx=self._edge_qctx, block_tables=bt_rows,

@@ -1,5 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the collaborative engine (serial and speculative) on CUDA against the
+"""The port on the card: each CUDA kernel against its plain version (the
+paged-attention kernel also in its tensor-parallel form, one launch per
+shard), and the collaborative engine (serial, speculative, and with its
+cloud tensor-parallel over two shards of the card) on CUDA against the
 same engine on the CPU.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
@@ -19,6 +21,7 @@ from repro_torch.kernels import int8_matmul as IK  # noqa: E402
 from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
+from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
 
@@ -77,6 +80,29 @@ def test_kernel_matches_plain(cuda, hd, dtype, group, s):
     tol = 1e-4 * max(float(want.abs().max()), 1.0)
     assert float((out - want).abs().max()) <= tol
     assert (out[0] == 0).all()                  # the length-0 row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 4, 128])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_kernel_matches_plain(cuda, tp, group, s):
+    """The sharded form splits heads over ``tp`` shards of the card and
+    launches once per shard: tolerance 1e-4 of max |plain| as for the
+    kernel itself; the length-0 row is 0."""
+    q, kp, vp, bt, lens, q0, ks, vs = _case(1, dtype=torch.int8,
+                                            group=group, s=s)
+    calls = PA.paged_flash_mq_sharded.calls
+    launches = PA.paged_flash_mq_sharded.launches
+    out = PA.paged_flash_mq_sharded(q, kp, vp, bt, lens, q0, ks, vs,
+                                    mesh=make_serve_mesh(model=tp))
+    assert PA.paged_flash_mq_sharded.calls == calls + 1
+    assert PA.paged_flash_mq_sharded.launches == launches + tp
+    want = PA.paged_attention_mq_ref(q, kp, vp, bt, lens, q0, ks, vs)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(float(want.abs().max()), 1.0)
+    assert float((out - want).abs().max()) <= tol
+    assert (out[0] == 0).all()
 
 
 @pytest.mark.gpu
@@ -166,3 +192,23 @@ def test_int8_kernel_identity_epilogue_is_exact(cuda):
                       zero_point=torch.tensor(0.0, device="cuda"))
     got = OPS.int8_matmul(a, b, one, one)
     assert torch.equal(got, REF.int8_matmul_ref(a, b, one, one))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec_k", [1, 4])
+def test_tp_engine_on_card_matches_cpu(cuda, spec_k):
+    """The cloud over two shards of the card, lossless: the same stream
+    as the CPU's tp = 2 engine and the card's unsharded one."""
+    params = TT.init_lm(CFG, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, CFG.vocab, n).astype(np.int32)
+               for n in (15, 17, 16, 31, 33, 9)]
+    kw = dict(cut_layer=0, max_len=48, a_bits=None, edge_int8=False,
+              cloud_int8=False, spec_k=spec_k)
+    outs = [TE.CollaborativeServingEngine(
+        params, CFG, device=dev, mesh=mesh, **kw).generate(
+            prompts, max_new_tokens=6)
+        for dev, mesh in (("cpu", make_serve_mesh(model=2, device="cpu")),
+                          ("cuda", make_serve_mesh(model=2)),
+                          ("cuda", None))]
+    assert outs[1] == outs[0] == outs[2]

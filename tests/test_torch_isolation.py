@@ -34,7 +34,9 @@ for n in names:
     importlib.import_module(n)
 assert {"repro_torch.kernels.ops", "repro_torch.kernels.ref",
         "repro_torch.kernels.int8_matmul",
-        "repro_torch.serve.spec"} <= set(names)
+        "repro_torch.serve.spec", "repro_torch.launch.mesh",
+        "repro_torch.launch.shardings",
+        "repro_torch.serve.sharding"} <= set(names)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print(len(names))

@@ -38,6 +38,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_arch as t_get_arch  # noqa: E402
 from repro_torch.core.costmodel import Channel  # noqa: E402
 from repro_torch.launch import serve as TLS  # noqa: E402
+from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
 
 CFG = get_arch("deepseek-7b").smoke
@@ -197,12 +198,14 @@ def test_cli_runs_collaborative_on_cpu(capsys):
 
 
 def test_unported_options_raise(params):
-    """Only the options still unported raise (``spec_k > 1`` is ported;
-    its parity tests are in ``test_torch_spec.py``)."""
+    """Only the options still unported raise (``spec_k > 1`` and ``mesh``
+    are ported; their parity tests are in ``test_torch_spec.py`` and
+    ``test_torch_sharded.py``; a mesh with a data axis is not)."""
     _, tp = params
     for kw, item in ((dict(policy="auto"), "A12"),
                      (dict(demand_paged=True), "A12"),
-                     (dict(mesh=object()), "A16"),
+                     (dict(mesh=make_serve_mesh(model=2, data=2,
+                                                device="cpu")), "A16"),
                      (dict(edge_paged=False), "A5")):
         with pytest.raises(NotImplementedError, match=item):
             TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0,
