@@ -10,13 +10,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     source, all started together.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
-                    gives it (decode, prefill, speculative verify), its
-                    tensor-parallel form ``paged_flash_mq_sharded`` at
-                    the same int8 shapes split over 2 and 4 shards of
-                    the one card (per-shard and summed times, the
-                    per-shard bound), the fused ``int8_matmul`` at
-                    deepseek-7b's edge GEMM shapes; error, kernel /
-                    plain times and the roofline bound.
+                    gives it (decode, prefill, speculative verify) and at
+                    a 4,096-position decode, its tensor-parallel form
+                    ``paged_flash_mq_sharded`` at the same int8 shapes
+                    split over 2 and 4 shards of the one card (per-shard
+                    and summed times, the per-shard bound), the fused
+                    ``int8_matmul`` at deepseek-7b's edge GEMM shapes;
+                    error, kernel / plain times and the roofline bound.
+                    Where ``paged_flash_mq`` runs its split-KV kernel
+                    (decode, verify), the tiled kernel it replaced there
+                    (``paged_flash_mq_tiled``) is checked and timed
+                    beside it (``prev_ms``), with the split count.
 4. ``quantized_dense`` — the INT8 GEMM's front door at full width on the
                     main path's own activations and layer-0 weights,
                     against its plain version and the f32 product.
@@ -255,6 +259,17 @@ def _sdpa_pregathered(c):
         qt, kt, vt, attn_mask=mask, enable_gqa=n_heads != n_kv)
 
 
+def _split_plan(PA, q, k_pages, bt):
+    """(chunk, n_splits) of the split kernel at this call's shape, or None
+    where ``paged_flash_mq`` takes the tiled kernel (more than 16 query
+    rows per kv head)."""
+    b, s, n_heads, _ = q.shape
+    n_kv = k_pages.shape[2]
+    if s * (n_heads // n_kv) > PA._SPLIT_ROWS:
+        return None
+    return PA._plan_splits(b, n_kv, bt.shape[1], k_pages.shape[1])
+
+
 def phase_kernels() -> list:
     from repro_torch.kernels import paged_attention as PA
     torch.backends.cuda.matmul.allow_tf32 = False    # the plain version's
@@ -287,6 +302,14 @@ def phase_kernels() -> list:
         "phi3_medium_gqa_prefill_int8", b=4, s=128, n_heads=40, n_kv=10,
         hd=128, page=16, lengths=[128, 100, 128, 77], q_start=[0] * 4,
         page_dtype=torch.int8, scales=True, seed=4, copies=8))
+    # a long context: the split kernel's chunk grows past one tile, the
+    # tiled kernel walks 128 tiles in series; 4 pool copies of 134 MB
+    lengths_long = [4096, 3000, 4096, 1024]
+    cases.append(_paged_case(
+        "deepseek7b_decode_int8_ctx4096", b=4, s=1, n_heads=32, n_kv=32,
+        hd=128, page=16, lengths=lengths_long,
+        q_start=[n - 1 for n in lengths_long], page_dtype=torch.int8,
+        scales=True, seed=6, copies=4))
 
     results = []
     for c in cases:
@@ -316,14 +339,36 @@ def phase_kernels() -> list:
             k_, v_ = c["pools"][next(it) % n]
             PA.paged_attention_mq_ref(c["q"], k_, v_, *args)
 
+        def run_prev():
+            k_, v_ = c["pools"][next(it) % n]
+            PA.paged_flash_mq_tiled(c["q"], k_, v_, *args)
+
         sdpa = _sdpa_pregathered(c)
-        # plain, kernel, kernel, plain: the two versions in turns.  The
-        # device times replay CUDA graphs; the call times are eager calls
-        # back to back, where the host's per-call work shows
+        plan = _split_plan(PA, c["q"], kp, c["bt"])
+        # plain, [tiled,] kernel, kernel, [tiled,] plain: the versions in
+        # turns.  The device times replay CUDA graphs; the call times are
+        # eager calls back to back, where the host's per-call work shows.
+        # Where the split kernel runs, the first port's tiled kernel (the
+        # serving path's kernel for these shapes until this design) is
+        # checked and timed beside it
+        prev = {}
+        if plan:
+            prev_out = PA.paged_flash_mq_tiled(c["q"], kp, vp, *args)
+            torch.cuda.synchronize()
+            prev["prev_max_abs_err"] = float((prev_out - plain).abs().max())
+            if not prev["prev_max_abs_err"] <= tol:
+                raise AssertionError(f"{c['name']}: tiled kernel vs plain "
+                                     f"max abs err {prev['prev_max_abs_err']}"
+                                     f" > tol {tol}")
         plain_ms = graph_ms(run_plain)
+        if plan:
+            prev["prev_ms"] = graph_ms(run_prev)
         kernel_ms = graph_ms(run_kernel)
         kernel_call_ms = cuda_ms(run_kernel)
         kernel_ms = min(kernel_ms, graph_ms(run_kernel))
+        if plan:
+            prev["prev_ms"] = min(prev["prev_ms"], graph_ms(run_prev))
+            prev["prev_call_ms"] = cuda_ms(run_prev)
         plain_ms = min(plain_ms, graph_ms(run_plain))
         plain_call_ms = cuda_ms(run_plain, iters=10)
         sdpa_ms = graph_ms(sdpa)
@@ -339,7 +384,10 @@ def phase_kernels() -> list:
                  bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bytes=nbytes, flops=flops, library_ms=None,
-                 sdpa_pregathered_ms=sdpa_ms)
+                 sdpa_pregathered_ms=sdpa_ms,
+                 kernel_design="split" if plan else "tiled",
+                 n_splits=plan[1] if plan else None,
+                 chunk=plan[0] if plan else None, **prev)
         emit("kernels", **r)
         results.append(r)
     return results
@@ -413,14 +461,23 @@ def phase_sharded_kernels() -> list:
                     k_, v_ = pools[next(it) % len(pools)]
                     PA.paged_attention_mq_ref(sq, k_, v_, *sargs)
 
+                def run_prev():
+                    k_, v_ = pools[next(it) % len(pools)]
+                    PA.paged_flash_mq_tiled(sq, k_, v_, *sargs)
+
+                plan = _split_plan(PA, sq, pools[0][0], c["bt"])
                 plain_ms = graph_ms(run_plain)
+                prev_ms = graph_ms(run_prev) if plan else None
                 kernel_ms = graph_ms(run_kernel)
                 kernel_ms = min(kernel_ms, graph_ms(run_kernel))
+                if plan:
+                    prev_ms = min(prev_ms, graph_ms(run_prev))
                 plain_ms = min(plain_ms, graph_ms(run_plain))
                 nbytes, flops = _paged_work(dict(
                     q=sq, pools=pools[:1], bt=c["bt"], lens=c["lens"],
                     qs=c["qs"], ks=sks))
-                shard_rows.append((kernel_ms, plain_ms, nbytes, flops))
+                shard_rows.append((kernel_ms, plain_ms, nbytes, flops,
+                                   prev_ms))
                 del pools
             t_bytes = shard_rows[0][2] / HBM_BYTES_PER_S * 1e3
             t_ops = shard_rows[0][3] / F32_FLOPS * 1e3
@@ -435,6 +492,12 @@ def phase_sharded_kernels() -> list:
                      kernel_ms=statistics.mean(x[0] for x in shard_rows),
                      sum_kernel_ms=sum(x[0] for x in shard_rows),
                      plain_ms=statistics.mean(x[1] for x in shard_rows),
+                     # the first port's tiled kernel on the same shards
+                     prev_ms=(statistics.mean(x[4] for x in shard_rows)
+                              if plan else None),
+                     shard_prev_ms=[x[4] for x in shard_rows],
+                     kernel_design="split" if plan else "tiled",
+                     n_splits=plan[1] if plan else None,
                      bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      shard_bytes=shard_rows[0][2],
@@ -701,7 +764,10 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
             acc[1] += 1
     rows = [(us, k, c) for k, (us, c) in by_name.items()]
     busy_us = sum(r[0] for r in rows)
-    attn_us = sum(r[0] for r in rows if "paged_flash_mq" in r[1])
+    # paged_flash_mq's two kernels: the split-KV one (decode, verify) and
+    # the tiled one (prefill)
+    split_us = sum(r[0] for r in rows if "paged_flash_split" in r[1])
+    attn_us = split_us + sum(r[0] for r in rows if "paged_flash_mq" in r[1])
     rows.sort(reverse=True)
     return dict(profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
                 device_busy_s=busy_us / 1e6,
@@ -710,6 +776,7 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
                 distinct_kernels=len(rows),
                 paged_flash_mq_ms=attn_us / 1e3,
                 paged_flash_mq_share=attn_us / busy_us if busy_us else None,
+                paged_flash_split_ms=split_us / 1e3,
                 top=[dict(name=k[:80], device_ms=us / 1e3, count=c,
                           share=us / busy_us)
                      for us, k, c in rows[:top]])
@@ -1381,7 +1448,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in kres),
         "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": None, "shape": dec["shape"]}, {
+        "library_ms": None, "prev_ms": dec["prev_ms"],
+        "n_splits": dec["n_splits"], "shape": dec["shape"]}, {
         # B3: per-shard numbers (each shard's launch, its bound); the
         # launches are the shard launches of the serial tp = 2 run
         "name": "paged_flash_mq_sharded", "route": "cuda",
@@ -1393,7 +1461,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in sres),
         "ms": sdec["kernel_ms"], "sum_ms": sdec["sum_kernel_ms"],
         "plain_ms": sdec["plain_ms"], "bound_ms": sdec["bound_ms"],
-        "bound_by": sdec["bound_by"], "library_ms": None, "tp": 2,
+        "bound_by": sdec["bound_by"], "library_ms": None,
+        "prev_ms": sdec["prev_ms"], "n_splits": sdec["n_splits"], "tp": 2,
         "shape": sdec["shape"]}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",

@@ -12,7 +12,12 @@ speculative verify.
 
 * ``paged_flash_mq`` launches the hand-written Hopper kernel
   (``csrc/paged_attention.cu``) on CUDA tensors and counts its launches
-  in ``paged_flash_mq.launches``.
+  in ``paged_flash_mq.launches``: the split-KV kernel for decode and
+  verify (at most 16 query rows per kv head, split over the plan of
+  ``_plan_splits``), the tiled kernel for prefill.
+  ``paged_flash_mq_tiled`` runs the tiled kernel at any shape, to time
+  and check the two designs side by side; the serving path does not
+  call it.
 * ``paged_attention_mq_ref`` / ``paged_attention_ref`` are the plain
   PyTorch versions: the oracle the kernel is held against, and the path
   CPU tensors take.
@@ -46,7 +51,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["paged_attention", "paged_multiquery_attention",
-           "paged_flash_mq", "paged_attention_ref", "paged_attention_mq_ref",
+           "paged_flash_mq", "paged_flash_mq_tiled", "paged_attention_ref",
+           "paged_attention_mq_ref",
            "paged_flash_mq_sharded", "paged_flash_decode_sharded",
            "paged_flash_mq_per_shard", "set_tp_mesh"]
 
@@ -138,11 +144,79 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
 
 @functools.cache
 def _launcher():
-    """The kernel's C entry point, built and loaded on first use."""
+    """The serving entry point (split-KV kernel for decode and verify, the
+    tiled kernel for prefill), built and loaded on first use."""
     fn = _build.load("paged_attention").paged_flash_mq_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _tiled_launcher():
+    """The tiled kernel's entry point at any shape."""
+    fn = _build.load("paged_attention").paged_flash_mq_tiled_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Split-KV planning (decode and verify: S * group <= _SPLIT_ROWS)
+# ---------------------------------------------------------------------------
+#
+# The split kernel runs a grid of (n_kv, n_splits, B) CTAs, each over
+# ``chunk`` positions of its row's block table, and merges the splits in
+# the same launch through a workspace and one int32 counter per (b, kv
+# head).  The plan comes from shapes alone, so no length is read back to
+# the host on the serving path.
+
+_SPLIT_ROWS = 16          # query rows per kv head the split kernel takes
+_SMS = 132                # streaming multiprocessors of an H100 SXM
+_CTAS_PER_SM = 8          # grid cap per SM (about 6 are resident at once)
+_MIN_CHUNK = 32           # positions: one tile of the kernel
+_COUNTERS = 1 << 16       # (b, kv head) pairs a launch may split
+
+_COUNTER_BUFS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_splits(batch: int, n_kv: int, pages_per_seq: int,
+                 page_size: int) -> tuple:
+    """(chunk, n_splits) for a split launch: ``chunk`` is a whole number
+    of pages and of 32-position tiles; the grid ``n_kv * n_splits * batch``
+    stays within ``_SMS * _CTAS_PER_SM`` CTAs when the (b, kv head) pairs
+    alone do not exceed it: at short spans the chunk is one tile and the
+    grid grows, at long spans the grid stops and the chunk grows.  (A cap
+    above the ~6 CTAs an SM holds at once splits long spans finer; at
+    deepseek-7b's serving decode span, 192 positions over 4 slots, the
+    32-position floor of the chunk binds first, so any cap from 6 to 16
+    gives the same plan.)  ``n_splits * chunk`` covers the span and
+    ``(n_splits - 1) * chunk`` does not."""
+    span = pages_per_seq * page_size
+    unit = math.lcm(page_size, _MIN_CHUNK)
+    max_splits = max(1, (_SMS * _CTAS_PER_SM) // max(1, batch * n_kv))
+    chunk = -(-span // max_splits)
+    chunk = max(unit, -(-chunk // unit) * unit)
+    return chunk, -(-span // chunk)
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """The device's zeroed int32 split counters, allocated on first use
+    (never inside a CUDA-graph capture: a captured allocation would be
+    the graph's).  Every split launch leaves its counters at 0."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _COUNTER_BUFS.get(idx)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_flash_mq: call once outside CUDA-graph "
+                               "capture first (its split counters are "
+                               "allocated on the first call)")
+        buf = _COUNTER_BUFS[idx] = torch.zeros(
+            _COUNTERS, dtype=torch.int32, device=torch.device("cuda", idx))
+    return buf
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
@@ -156,15 +230,10 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def paged_flash_mq(q: torch.Tensor, k_pages: torch.Tensor,
-                   v_pages: torch.Tensor, block_tables: torch.Tensor,
-                   lengths: torch.Tensor, q_start: torch.Tensor,
-                   k_scale: Optional[torch.Tensor] = None,
-                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the Hopper kernel: q f32 [B, S, n_heads, hd]; pages int8,
-    bf16 or f32 [n_pages, page_size, n_kv, hd]; block tables, lengths and
-    q_start int32; scales None, [n_kv] or [B, n_kv] → f32 [B, S, n_heads,
-    hd].  Block-table entries must lie in [0, n_pages)."""
+def _validated(q, k_pages, v_pages, block_tables, lengths, q_start,
+               k_scale, v_scale) -> tuple:
+    """Check a kernel call's arguments; the scales in the kernels' [B,
+    n_kv] f32 layout."""
     b, s, n_heads, hd = q.shape
     n_pages, page_size, n_kv, hd_k = k_pages.shape
     _check(q, "q", torch.float32, 4)
@@ -187,13 +256,46 @@ def paged_flash_mq(q: torch.Tensor, k_pages: torch.Tensor,
     _check(vs, "v_scale", torch.float32, 2)
     if ks.shape != (b, n_kv) or vs.shape != (b, n_kv):
         raise ValueError(f"scales must broadcast to {(b, n_kv)}")
+    return ks, vs
+
+
+def paged_flash_mq(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, block_tables: torch.Tensor,
+                   lengths: torch.Tensor, q_start: torch.Tensor,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the Hopper kernel: q f32 [B, S, n_heads, hd]; pages int8,
+    bf16 or f32 [n_pages, page_size, n_kv, hd]; block tables, lengths and
+    q_start int32; scales None, [n_kv] or [B, n_kv] → f32 [B, S, n_heads,
+    hd].  Block-table entries must lie in [0, n_pages).  Decode and verify
+    (S * n_heads / n_kv <= 16) take the split-KV kernel over the plan of
+    ``_plan_splits``, prefill the tiled kernel; one launch either way."""
+    b, s, n_heads, hd = q.shape
+    _, page_size, n_kv, _ = k_pages.shape
+    ks, vs = _validated(q, k_pages, v_pages, block_tables, lengths, q_start,
+                        k_scale, v_scale)
+    n_rows = s * (n_heads // n_kv)
+    chunk = n_splits = 0
+    ws = cnt = None
+    if n_rows <= _SPLIT_ROWS and b * s:
+        chunk, n_splits = _plan_splits(b, n_kv, block_tables.shape[1],
+                                       page_size)
+        if n_splits > 1:
+            if b * n_kv > _COUNTERS:
+                raise ValueError(f"B * n_kv = {b * n_kv} exceeds the "
+                                 f"{_COUNTERS} split counters")
+            cnt = _counters(q.device)
+            ws = torch.empty(b * n_kv * n_splits * n_rows * (hd + 2),
+                             dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = _launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), q_start.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(),
+        0 if cnt is None else cnt.data_ptr(),
         b, s, n_heads, n_kv, hd, page_size, block_tables.shape[1],
-        _PAGE_DTYPES[k_pages.dtype],
+        _PAGE_DTYPES[k_pages.dtype], chunk, n_splits, _COUNTERS,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_flash_mq launch failed (code {rc})")
@@ -202,6 +304,35 @@ def paged_flash_mq(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_flash_mq.launches = 0
+
+
+def paged_flash_mq_tiled(q, k_pages, v_pages, block_tables, lengths, q_start,
+                         k_scale=None, v_scale=None) -> torch.Tensor:
+    """The tiled kernel (the first port's design: one CTA per block of 16
+    query rows walks all its row's pages) at any shape, with
+    ``paged_flash_mq``'s arguments.  The serving path runs it for
+    prefill through ``paged_flash_mq``; this door is for timing and
+    checking it beside the split kernel.  Counts its own launches in
+    ``paged_flash_mq_tiled.launches``."""
+    b, s, n_heads, hd = q.shape
+    _, page_size, n_kv, _ = k_pages.shape
+    ks, vs = _validated(q, k_pages, v_pages, block_tables, lengths, q_start,
+                        k_scale, v_scale)
+    out = torch.empty_like(q)
+    rc = _tiled_launcher()(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), q_start.data_ptr(),
+        ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
+        b, s, n_heads, n_kv, hd, page_size, block_tables.shape[1],
+        _PAGE_DTYPES[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_flash_mq_tiled launch failed (code {rc})")
+    paged_flash_mq_tiled.launches += 1
+    return out
+
+
+paged_flash_mq_tiled.launches = 0
 
 
 def _local(q, k_pages, v_pages, block_tables, lengths, q_start,
@@ -228,7 +359,8 @@ def _local(q, k_pages, v_pages, block_tables, lengths, q_start,
 # of csrc/paged_attention.cu over its own contiguous pool
 # [n_pages, page, n_kv / tp, hd] and scales [B, n_kv / tp]: at decode a
 # shard moves 1/tp of the pool's bytes, so its bound is the unsharded
-# bound / tp.  A decode shard's grid is (B, n_kv / tp, 1) CTAs.
+# bound / tp.  A decode shard's grid is (n_kv / tp, n_splits, B) CTAs of
+# the split kernel, planned for the shard's own n_kv / tp.
 
 
 def paged_flash_mq_per_shard(qs, k_pages, v_pages, block_tables, lengths,

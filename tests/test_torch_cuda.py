@@ -36,7 +36,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(seed, *, dtype, group, s, b=4, n_kv=4, hd=128, page=16, per=6):
+def _case(seed, *, dtype, group, s, b=4, n_kv=4, hd=128, page=16, per=6,
+          lens=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_pages = b * per + 2
     shape = (n_pages, page, n_kv, hd)
@@ -54,23 +55,25 @@ def _case(seed, *, dtype, group, s, b=4, n_kv=4, hd=128, page=16, per=6):
     perm = torch.randperm(n_pages - 1, generator=g, device="cuda") + 1
     bt = perm[:b * per].reshape(b, per).to(torch.int32)
     span = per * page
-    lens = torch.tensor([0, span, 37, 1], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([0, span, 37, 1] if lens is None else lens,
+                        dtype=torch.int32, device="cuda")
     q0 = torch.clamp(lens - s, min=0).to(torch.int32)
     q = torch.randn((b, s, n_kv * group, hd), generator=g, device="cuda")
     return q, kp, vp, bt, lens, q0, ks, vs
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [1, 8, 128])
+@pytest.mark.parametrize("s", [1, 4, 8, 16, 128])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
                                    torch.float32])
 @pytest.mark.parametrize("hd", [128, 12])
 def test_kernel_matches_plain(cuda, hd, dtype, group, s):
-    """Tolerance 1e-4 of max |plain|: f32 sums in another order.  hd 12
-    is no multiple of 16 bytes for int8 and bf16 rows, so those pages
-    take the kernel's scalar loads; f32 rows of 12 take 16-byte loads,
-    three to a row."""
+    """Tolerance 1e-4 of max |plain|: f32 sums in another order.  S *
+    group <= 16 takes the split-KV kernel (96 positions: 3 splits), more
+    rows the tiled one.  hd 12 is no multiple of 16 bytes for int8 and
+    bf16 rows, so those pages take the kernels' scalar loads; f32 rows of
+    12 take 16-byte loads, three to a row."""
     args = _case(0, dtype=dtype, group=group, s=s, hd=hd)
     before = PA.paged_flash_mq.launches
     out = PA.paged_multiquery_attention(*args)
@@ -80,6 +83,86 @@ def test_kernel_matches_plain(cuda, hd, dtype, group, s):
     tol = 1e-4 * max(float(want.abs().max()), 1.0)
     assert float((out - want).abs().max()) <= tol
     assert (out[0] == 0).all()                  # the length-0 row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_kernel_matches_plain_long_context(cuda, dtype, group, s):
+    """A 4,096-position span (the split kernel's chunk grows past one
+    tile, so its ring of stages turns over): tolerance 1e-4 of max
+    |plain|; the length-0 row is 0."""
+    args = _case(3, dtype=dtype, group=group, s=s, per=256,
+                 lens=[0, 4096, 3000, 1024])
+    out = PA.paged_flash_mq(*args)
+    want = PA.paged_attention_mq_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(float(want.abs().max()), 1.0)
+    assert float((out - want).abs().max()) <= tol
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 4])
+def test_split_kernel_is_repeatable(cuda, s):
+    """Two calls in a row give bitwise-equal output: the splits merge in
+    a fixed order, and each launch leaves its counters at 0 for the
+    next."""
+    args = _case(4, dtype=torch.int8, group=1, s=s, per=12,
+                 lens=[0, 192, 100, 17])
+    first = PA.paged_flash_mq(*args)
+    second = PA.paged_flash_mq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert int(PA._counters(first.device).abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_split_kernel_after_a_smaller_grid(cuda):
+    """A call over more (b, kv head) pairs after a small one uses
+    counters the small one never touched; both match the plain
+    version."""
+    for b, n_kv in ((1, 2), (6, 8)):
+        args = _case(5, dtype=torch.int8, group=1, s=1, b=b, n_kv=n_kv,
+                     per=12, lens=[192, 0, 100, 17, 33, 160][:b])
+        out = PA.paged_flash_mq(*args)
+        want = PA.paged_attention_mq_ref(*args)
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(float(want.abs().max()), 1.0)
+        assert float((out - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,group", [(1, 1), (4, 1), (1, 4), (4, 4)])
+def test_split_kernel_matches_tiled_kernel(cuda, s, group):
+    """The split kernel against the first port's tiled kernel on the same
+    inputs: within 1e-4 of max |tiled|."""
+    args = _case(6, dtype=torch.int8, group=group, s=s, per=12,
+                 lens=[0, 192, 100, 17])
+    before = PA.paged_flash_mq_tiled.launches
+    tiled = PA.paged_flash_mq_tiled(*args)
+    assert PA.paged_flash_mq_tiled.launches == before + 1
+    split = PA.paged_flash_mq(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(float(tiled.abs().max()), 1.0)
+    assert float((split - tiled).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_split_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph (workspace from the graph's pool, the
+    counters allocated before), each replay equals the eager call."""
+    args = _case(7, dtype=torch.int8, group=1, s=1, per=12,
+                 lens=[0, 192, 100, 17])
+    eager = PA.paged_flash_mq(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = PA.paged_flash_mq(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.gpu
