@@ -17,10 +17,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     and summed times, the per-shard bound), the fused
                     ``int8_matmul`` at deepseek-7b's edge GEMM shapes;
                     error, kernel / plain times and the roofline bound.
-                    Where ``paged_flash_mq`` runs its split-KV kernel
-                    (decode, verify), the tiled kernel it replaced there
-                    (``paged_flash_mq_tiled``) is checked and timed
-                    beside it (``prev_ms``), with the split count.
+                    ``paged_flash_mq`` runs its split-KV kernel at decode
+                    and verify (with the split count) and its tensor-core
+                    kernel at prefill; at every shape the first port's
+                    tiled kernel (``paged_flash_mq_tiled``) is checked
+                    and timed beside it (``prev_ms``), and the
+                    tensor-core kernel must be the faster of the two.
 4. ``quantized_dense`` — the INT8 GEMM's front door at full width on the
                     main path's own activations and layer-0 weights,
                     against its plain version and the f32 product.
@@ -28,7 +30,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     width and depth (bf16, random seeded weights), INT8
                     paged KV on both sides of cut 14, timed in turns with
                     the cloud-only ``ServingEngine`` on the same weights;
-                    every kernel's launch count on each run is checked.
+                    every kernel's launch count on each run is checked
+                    (the tensor-core prefill kernel's among them).
                     Then one ``torch.profiler`` window of each engine on
                     the same traffic, after all the timed runs.
 6. ``spec_path``  — the same engine, weights and traffic with speculative
@@ -80,6 +83,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS = 67e12                  # H100 SXM f32 peak outside tensor cores
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+# bf16 tensor-core products the prefill kernel issues per f32 product:
+# q and the weights split into hi + lo, f32 pages' K and V too
+TC_PRODUCTS = {torch.int8: 2, torch.bfloat16: 2, torch.float32: 3}
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 KERNEL_TOL = 1e-4                  # |kernel - plain| / max|plain|
 INT8_RTOL, INT8_ATOL = 1e-5, 1e-4  # the JAX suite's f32 epilogue tolerance
@@ -236,6 +243,16 @@ def _paged_work(c) -> tuple:
     return nbytes, flops
 
 
+def _ops_ms(flops, plan, page_dtype) -> float:
+    """The operations term of a paged call's bound, in ms: f32 products
+    at the CUDA-core rate for the split kernel (``plan`` set), bf16
+    tensor-core products (``TC_PRODUCTS`` per f32 product) at the dense
+    bf16 rate for the tensor-core kernel."""
+    if plan:
+        return flops / F32_FLOPS * 1e3
+    return flops * TC_PRODUCTS[page_dtype] / BF16_FLOPS * 1e3
+
+
 def _sdpa_pregathered(c):
     """``scaled_dot_product_attention`` on K/V gathered and dequantized
     beforehand — a yardstick only; the port never calls it."""
@@ -261,8 +278,8 @@ def _sdpa_pregathered(c):
 
 def _split_plan(PA, q, k_pages, bt):
     """(chunk, n_splits) of the split kernel at this call's shape, or None
-    where ``paged_flash_mq`` takes the tiled kernel (more than 16 query
-    rows per kv head)."""
+    where ``paged_flash_mq`` takes the tensor-core kernel (more than 16
+    query rows per kv head)."""
     b, s, n_heads, _ = q.shape
     n_kv = k_pages.shape[2]
     if s * (n_heads // n_kv) > PA._SPLIT_ROWS:
@@ -345,36 +362,36 @@ def phase_kernels() -> list:
 
         sdpa = _sdpa_pregathered(c)
         plan = _split_plan(PA, c["q"], kp, c["bt"])
-        # plain, [tiled,] kernel, kernel, [tiled,] plain: the versions in
+        # plain, tiled, kernel, kernel, tiled, plain: the versions in
         # turns.  The device times replay CUDA graphs; the call times are
         # eager calls back to back, where the host's per-call work shows.
-        # Where the split kernel runs, the first port's tiled kernel (the
-        # serving path's kernel for these shapes until this design) is
-        # checked and timed beside it
-        prev = {}
-        if plan:
-            prev_out = PA.paged_flash_mq_tiled(c["q"], kp, vp, *args)
-            torch.cuda.synchronize()
-            prev["prev_max_abs_err"] = float((prev_out - plain).abs().max())
-            if not prev["prev_max_abs_err"] <= tol:
-                raise AssertionError(f"{c['name']}: tiled kernel vs plain "
-                                     f"max abs err {prev['prev_max_abs_err']}"
-                                     f" > tol {tol}")
+        # The first port's tiled kernel (the serving path's kernel at
+        # every shape until the split and tensor-core designs) is checked
+        # and timed beside the kernel
+        prev_out = PA.paged_flash_mq_tiled(c["q"], kp, vp, *args)
+        torch.cuda.synchronize()
+        prev = dict(prev_max_abs_err=float((prev_out - plain).abs().max()))
+        if not prev["prev_max_abs_err"] <= tol:
+            raise AssertionError(f"{c['name']}: tiled kernel vs plain "
+                                 f"max abs err {prev['prev_max_abs_err']}"
+                                 f" > tol {tol}")
         plain_ms = graph_ms(run_plain)
-        if plan:
-            prev["prev_ms"] = graph_ms(run_prev)
+        prev["prev_ms"] = graph_ms(run_prev)
         kernel_ms = graph_ms(run_kernel)
         kernel_call_ms = cuda_ms(run_kernel)
         kernel_ms = min(kernel_ms, graph_ms(run_kernel))
-        if plan:
-            prev["prev_ms"] = min(prev["prev_ms"], graph_ms(run_prev))
-            prev["prev_call_ms"] = cuda_ms(run_prev)
+        prev["prev_ms"] = min(prev["prev_ms"], graph_ms(run_prev))
+        prev["prev_call_ms"] = cuda_ms(run_prev)
         plain_ms = min(plain_ms, graph_ms(run_plain))
         plain_call_ms = cuda_ms(run_plain, iters=10)
         sdpa_ms = graph_ms(sdpa)
+        if not plan and not kernel_ms < prev["prev_ms"]:
+            raise AssertionError(f"{c['name']}: tensor-core kernel {kernel_ms}"
+                                 f" ms, not below the tiled kernel's "
+                                 f"{prev['prev_ms']}")
         nbytes, flops = _paged_work(c)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
+        t_ops = _ops_ms(flops, plan, kp.dtype)
         r = dict(shape=c["name"], q=list(c["q"].shape),
                  pages=list(kp.shape), page_dtype=str(kp.dtype),
                  max_abs_err=err, max_abs_plain=scale, tol=tol,
@@ -385,7 +402,7 @@ def phase_kernels() -> list:
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bytes=nbytes, flops=flops, library_ms=None,
                  sdpa_pregathered_ms=sdpa_ms,
-                 kernel_design="split" if plan else "tiled",
+                 kernel_design="split" if plan else "tensor_core",
                  n_splits=plan[1] if plan else None,
                  chunk=plan[0] if plan else None, **prev)
         emit("kernels", **r)
@@ -467,11 +484,10 @@ def phase_sharded_kernels() -> list:
 
                 plan = _split_plan(PA, sq, pools[0][0], c["bt"])
                 plain_ms = graph_ms(run_plain)
-                prev_ms = graph_ms(run_prev) if plan else None
+                prev_ms = graph_ms(run_prev)
                 kernel_ms = graph_ms(run_kernel)
                 kernel_ms = min(kernel_ms, graph_ms(run_kernel))
-                if plan:
-                    prev_ms = min(prev_ms, graph_ms(run_prev))
+                prev_ms = min(prev_ms, graph_ms(run_prev))
                 plain_ms = min(plain_ms, graph_ms(run_plain))
                 nbytes, flops = _paged_work(dict(
                     q=sq, pools=pools[:1], bt=c["bt"], lens=c["lens"],
@@ -479,8 +495,12 @@ def phase_sharded_kernels() -> list:
                 shard_rows.append((kernel_ms, plain_ms, nbytes, flops,
                                    prev_ms))
                 del pools
+            if not plan and any(x[0] >= x[4] for x in shard_rows):
+                raise AssertionError(f"{c['name']} tp {tp}: a shard's "
+                                     f"tensor-core launch is not below the "
+                                     f"tiled kernel's")
             t_bytes = shard_rows[0][2] / HBM_BYTES_PER_S * 1e3
-            t_ops = shard_rows[0][3] / F32_FLOPS * 1e3
+            t_ops = _ops_ms(shard_rows[0][3], plan, kp.dtype)
             r = dict(kernel="paged_flash_mq_sharded",
                      shape=f"{c['name']}_tp{tp}", tp=tp,
                      q=list(c["q"].shape), pages=list(kp.shape),
@@ -493,10 +513,10 @@ def phase_sharded_kernels() -> list:
                      sum_kernel_ms=sum(x[0] for x in shard_rows),
                      plain_ms=statistics.mean(x[1] for x in shard_rows),
                      # the first port's tiled kernel on the same shards
-                     prev_ms=(statistics.mean(x[4] for x in shard_rows)
-                              if plan else None),
+                     prev_ms=statistics.mean(x[4] for x in shard_rows),
+                     sum_prev_ms=sum(x[4] for x in shard_rows),
                      shard_prev_ms=[x[4] for x in shard_rows],
-                     kernel_design="split" if plan else "tiled",
+                     kernel_design="split" if plan else "tensor_core",
                      n_splits=plan[1] if plan else None,
                      bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -764,9 +784,13 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
             acc[1] += 1
     rows = [(us, k, c) for k, (us, c) in by_name.items()]
     busy_us = sum(r[0] for r in rows)
-    # paged_flash_mq's two kernels: the split-KV one (decode, verify) and
-    # the tiled one (prefill)
+    # paged_flash_mq's kernels: the split-KV one (decode, verify) and the
+    # tensor-core one (prefill, ``paged_flash_mq_tc_kernel``); the tiled
+    # one (``paged_flash_mq_kernel``) is off the serving path
     split_us = sum(r[0] for r in rows if "paged_flash_split" in r[1])
+    tc_us = sum(r[0] for r in rows if "paged_flash_mq_tc" in r[1])
+    # device memsets: among them the split launches' counter zeroing
+    memsets = [r for r in rows if "memset" in r[1].lower()]
     attn_us = split_us + sum(r[0] for r in rows if "paged_flash_mq" in r[1])
     rows.sort(reverse=True)
     return dict(profiled_wall_s=wall, unprofiled_wall_s=unprofiled_wall_s,
@@ -777,6 +801,9 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
                 paged_flash_mq_ms=attn_us / 1e3,
                 paged_flash_mq_share=attn_us / busy_us if busy_us else None,
                 paged_flash_split_ms=split_us / 1e3,
+                paged_flash_tc_ms=tc_us / 1e3,
+                memset_ms=sum(r[0] for r in memsets) / 1e3,
+                memset_count=sum(r[2] for r in memsets),
                 top=[dict(name=k[:80], device_ms=us / 1e3, count=c,
                           share=us / busy_us)
                      for us, k, c in rows[:top]])
@@ -796,6 +823,7 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
     from repro_torch.kernels import paged_attention as PA
     e.stats = type(e.stats)()
     PA.paged_flash_mq.launches = 0
+    PA.paged_flash_mq.tc_launches = 0
     PA.paged_flash_mq_sharded.calls = 0
     PA.paged_flash_mq_sharded.launches = 0
     IK.int8_matmul_cuda.launches = 0
@@ -804,7 +832,11 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PA.paged_flash_mq.launches
+    tc_launches = PA.paged_flash_mq.tc_launches
     st = e.stats
+    if st.prefill_calls and not tc_launches:
+        raise AssertionError(f"{what}: {st.prefill_calls} prefills launched "
+                             f"the tensor-core kernel no time")
     if launches != expect(st):
         raise AssertionError(f"{what}: paged_flash_mq launched {launches} "
                              f"times, expected {expect(st)} "
@@ -814,6 +846,7 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
                for o in outs):
         raise AssertionError(f"{what} produced malformed streams")
     return dict(outs=outs, wall=wall, launches=launches,
+                tc_launches=tc_launches,
                 sharded_calls=PA.paged_flash_mq_sharded.calls,
                 sharded_launches=PA.paged_flash_mq_sharded.launches,
                 int8_matmul_launches=IK.int8_matmul_cuda.launches, stats=st)
@@ -879,6 +912,7 @@ def phase_main_path(params, cfg) -> dict:
                setup_s=setup_s, reps=reps, **summary(runs["collab"]),
                prefill_calls=st.prefill_calls, decode_steps=st.decode_steps,
                launches=first["launches"],
+               tc_launches=first["tc_launches"],
                expected_launches=cfg.n_layers * (st.prefill_calls
                                                  + st.decode_steps),
                int8_matmul_launches=first["int8_matmul_launches"],
@@ -980,6 +1014,7 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
                acceptance_rate=st.acceptance_rate(),
                tokens_per_round=st.decode_tokens / max(st.spec_rounds, 1),
                launches=first["launches"],
+               tc_launches=first["tc_launches"],
                int8_matmul_launches=first["int8_matmul_launches"],
                transmitted_bytes=st.transmitted_bytes,
                prefill_bytes=st.prefill_bytes,
@@ -1174,6 +1209,7 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
                    acceptance_rate=(st.acceptance_rate() if k > 1
                                     else None),
                    launches=first["launches"],
+                   tc_launches=first["tc_launches"],
                    expected_launches=expect(st),
                    sharded_calls=first["sharded_calls"],
                    sharded_launches=first["sharded_launches"],
@@ -1436,6 +1472,7 @@ def main(argv=None) -> int:
     # of 4 slots (int8_matmul: gate/up at M = 4; the serving path does
     # not call it, so its main-path count is 0 — read, not assumed)
     dec = next(r for r in kres if r["shape"] == "deepseek7b_decode_int8")
+    pre = next(r for r in kres if r["shape"] == "deepseek7b_prefill_int8")
     sdec = next(r for r in sres
                 if r["shape"] == "deepseek7b_decode_int8_tp2")
     mm = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
@@ -1450,6 +1487,19 @@ def main(argv=None) -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": None, "prev_ms": dec["prev_ms"],
         "n_splits": dec["n_splits"], "shape": dec["shape"]}, {
+        # B1 at prefill (S * group > 16): the tensor-core kernel, launched
+        # through paged_flash_mq; its launches are counted apart too
+        "name": "paged_flash_mq_tc", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:213",
+        "launches": main_res["tc_launches"],
+        "spec_path_launches": spec_res["tc_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kres
+                           if r["kernel_design"] == "tensor_core"),
+        "ms": pre["kernel_ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None, "prev_ms": pre["prev_ms"],
+        "shape": pre["shape"]}, {
         # B3: per-shard numbers (each shard's launch, its bound); the
         # launches are the shard launches of the serial tp = 2 run
         "name": "paged_flash_mq_sharded", "route": "cuda",

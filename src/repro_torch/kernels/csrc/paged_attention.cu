@@ -10,13 +10,17 @@
 // logits = -1e30, weights re-masked to 0, output acc / max(l, 1e-30), so a
 // row with no valid position gives exactly 0.
 //
-// What bounds it on an H100: the K/V bytes it must stream from device
-// memory at 3.35 TB/s (1 B/elem for int8 pages, 2 for bf16).  At decode and
-// verify (B = 4, S = 1..4) that is a few hundred KB, under a microsecond, so
-// at short contexts the launch and each dependent memory round trip (length,
-// block table, pages, partials) set the time; at long contexts the bytes do.
+// What bounds it on an H100: the bytes it must move at 3.35 TB/s.  At
+// decode and verify (B = 4, S = 1..4) that is a few hundred KB of K/V (1
+// B/elem for int8 pages, 2 for bf16), under a microsecond, so at short
+// contexts the launch and each dependent memory round trip (length, block
+// table, pages, partials) set the time; at long contexts the bytes do.  At
+// prefill (B 4, S 128) q read and out written as f32 are most of the ~20 MB
+// (~6 us); the products, 2 bf16 tensor-core products per f32 product, need
+// ~1 us at 989 TFLOP/s.
 //
-// Two kernels, chosen per call by n_rows = S * group:
+// Three kernels; the serving entry point picks one per call by n_rows =
+// S * group:
 //
 // * n_rows <= 16 (decode, speculative verify, GQA decode): the split-KV
 //   kernel `paged_flash_split_kernel` (flash decoding).
@@ -48,21 +52,65 @@
 //   - The merge of the splits is in the same launch: each CTA writes its
 //     rows' (m, l, acc) to an f32 workspace and bumps an int32 counter of
 //     its (b, kv head) with a release/acquire atomic; the CTA that arrives
-//     last merges the splits in split order (bitwise-repeatable, no float atomics), writes
-//     the output and puts the counter back to 0.  The counters are one
-//     zeroed buffer per device: the port issues all its launches on one
-//     stream per device (tensor-parallel shards on one card run one after
-//     another), and two launches running at once on two streams of one
-//     card would race on them.
-// * n_rows > 16 (prefill): the tiled kernel `paged_flash_mq_kernel` of the
-//   first port, unchanged, until its tensor-core redesign.  One CTA serves
-//   up to 16 query rows of one (b, kv head) and walks the pages in series:
-//   16-byte loads all issued before any is consumed, dequantized into
-//   shared memory as f32; the page loop stops after the last position any
-//   row of the CTA may attend (exact: a fully masked tile leaves m, l and
-//   acc unchanged).  `paged_flash_mq_tiled_launch` runs it at any shape,
-//   so the two designs can be timed and checked side by side.
-//
+//     last merges the splits in split order (bitwise-repeatable, no float
+//     atomics) and writes the output.  The counters live at the end of the
+//     call's own workspace (a `torch.empty` of the caching allocator,
+//     ordered on the launch's stream) and are zeroed by a cudaMemsetAsync
+//     on that stream just before the launch: no state outlives a call, two
+//     launches on two streams of one card never share a counter, and a
+//     CUDA graph captures the memset with the launch.
+// * n_rows > 16 (prefill, GQA verify at larger k, resync replay): the
+//   tensor-core kernel `paged_flash_mq_tc_kernel`.
+//   - Grid (row blocks x column blocks, n_kv, B).  A CTA takes 64 stacked
+//     query rows of one (b, kv head), so it reads that pair's pages once
+//     per 64 rows (the tiled kernel read them once per 16); row blocks
+//     with the most positions to attend are issued first.  It stops after
+//     the last position any of its rows may attend, and a warp skips the
+//     16-position groups past its own rows' last position (both exact: a
+//     fully masked group leaves m, l and acc as they are).
+//   - 8 warps: warp w takes rows 16 (w mod 4) .. + 15 over one half of
+//     each tile's positions (w / 4); the two halves keep their own online
+//     softmax state and merge once at the end in shared memory.  Each SM
+//     holds two CTAs, so 4 warps share a scheduler: with fewer, a CTA's
+//     chains of dependent index arithmetic and shared-memory round trips,
+//     not its products, set its time.
+//   - Pages stream in tiles of 64 positions (32 for f32 pages) by 16-byte
+//     cp.async copies into one raw staging buffer; each tile is converted
+//     once in shared memory into bf16 planes (int8 and bf16 exactly), and
+//     the copy of tile t + 1 is issued right after, so it is in flight
+//     while tile t's products run.  Tile 0's copy is issued before q is
+//     loaded (16-byte loads straight to registers, split there).  Block-
+//     table entries are staged once per CTA.  Plane rows are padded to an
+//     odd number of 16-byte units, so ldmatrix is bank-conflict-free; hd is
+//     padded to 16 with zeros.  Serving shapes (powers of two) index with
+//     shifts.
+//   - Products are mma.sync.m16n8k16 bf16 -> f32 with ldmatrix fragments
+//     (.trans for V), not wgmma + TMA: the serving spans are 128-184
+//     positions, so a CTA walks at most 3 tiles and the deep asynchronous
+//     pipeline wgmma needs would not fill; TMA cannot follow a block table
+//     without a descriptor per page.  wgmma is the next step if tiles turn
+//     out compute-bound.
+//   - Precision (the 1e-4 x max |plain| tolerance needs more than one bf16
+//     product, since q and the weights are f32): every f32 operand is split
+//     into bf16 hi + lo (16 bits of mantissa).  q carries sm_scale *
+//     k_scale * log2(e) before its split (exp2 replaces exp, the same
+//     softmax), so QK = q_hi K + q_lo K for int8 and bf16 pages, which are
+//     exact in bf16; PV = p_hi V + p_lo V, and v_scale is applied once at
+//     the end.  f32 pages split K and V too: three products (hi hi, lo hi,
+//     hi lo).  The two products of an accumulator are issued apart.
+//   - Online softmax runs on the accumulator fragments: each row's max and
+//     sum over the quad of lanes that share it; P's fragments are packed
+//     into the A fragments of the PV product in registers, as in
+//     flash-attention 2, and acc for 16 x DC outputs stays in registers.
+//     Above hd 128 the output is split into column blocks of 128 dims, a
+//     CTA each (each computes the whole q K^T), which keeps acc at 64
+//     registers a thread.  The merged output tile leaves through shared
+//     memory as 16-byte row segments.
+// * The tiled kernel `paged_flash_mq_kernel` of the first port (one CTA
+//   per 16 rows, f32 CUDA-core products) is no longer on the serving path:
+//   `paged_flash_mq_tiled_launch` runs it at any shape, so the designs can
+//   be timed and checked side by side.
+
 // The same kernels are the per-shard launch of the tensor-parallel form
 // (src/repro/kernels/paged_attention.py:304-375, a shard_map of the Pallas
 // kernel over kv heads): each shard runs over its own contiguous pool
@@ -802,7 +850,6 @@ paged_flash_split_kernel(const float* __restrict__ q,        // [B, S, H, hd]
     for (int e = 0; e < DPL; ++e)
       if (d0 + e < hd) o[d0 + e] = a[e] * inv * vsc;
   }
-  if (tid == 0) counters[bh] = 0;  // ready for the next launch
 }
 
 template <typename T, int DPL>
@@ -846,6 +893,662 @@ int launch_split_dpl(const float* q, const void* kp, const void* vp, const int* 
 #undef PFA_SPLIT
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel for n_rows = S * group > kSplitRows (prefill)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;     // stacked query rows per CTA: 16 per warp
+constexpr int kTcThreads = 256; // 8 warps: two groups of 4 over the rows
+constexpr int kBtStage = 256;   // block-table entries staged in shared memory
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as bf16 hi + lo pairs, a in the low half: hi = bf16(x), lo =
+// bf16(x - hi), so hi + lo carries 16 bits of x's mantissa
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight f32 values to a bf16 plane (and, with LO, their residuals to a
+// second plane); both 16-byte aligned
+template <bool LO>
+__device__ __forceinline__ void store8(__nv_bfloat16* hi, __nv_bfloat16* lo, const float (&x)[8]) {
+  uint4 h, l;
+  uint32_t* hw = reinterpret_cast<uint32_t*>(&h);
+  uint32_t* lw = reinterpret_cast<uint32_t*>(&l);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split2(x[2 * i], x[2 * i + 1], hw[i], lw[i]);
+  *reinterpret_cast<uint4*>(hi) = h;
+  if constexpr (LO) *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// Eight elements of type T as one register-held unit (8, 16 or 32 bytes)
+struct Bytes32 {
+  uint4 a, b;
+};
+template <typename T> struct Raw8Of { using type = typename Word<8 * sizeof(T)>::type; };
+template <> struct Raw8Of<float> { using type = Bytes32; };
+template <typename T> using Raw8 = typename Raw8Of<T>::type;
+
+// Elements d0 .. d0 + 7 of a row of n elements, `p` at element d0 (null:
+// a position past the tile's last, all 0): one aligned load when all 8 lie
+// in the row (p aligned to the unit), else element by element with 0 past n
+template <typename T>
+__device__ __forceinline__ Raw8<T> load_unit(const T* p, int d0, int n) {
+  Raw8<T> w;
+  if (p != nullptr && d0 + 8 <= n && (reinterpret_cast<uintptr_t>(p) % alignof(Raw8<T>)) == 0) {
+    w = *reinterpret_cast<const Raw8<T>*>(p);
+  } else {
+    T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = p != nullptr && d0 + i < n ? p[i] : zero_of<T>();
+  }
+  return w;
+}
+
+// Dynamic shared memory of the tensor-core kernel, in bytes (host and
+// device use the same arithmetic).  Planes are bf16 with rows padded to an
+// odd number of 16-byte units, so the 8 row addresses of an ldmatrix hit 8
+// distinct 16-byte bank groups.  f32 pages (LO) keep a second plane of
+// residuals for K and V.
+template <typename T, int DC, int BN>
+struct TcSmem {
+  int hp, ldq, ldv, rk, rv;
+  int q_hi, q_lo, k_hi, k_lo, v_hi, v_lo, raw_k, raw_v, bt, total;
+  __host__ __device__ explicit TcSmem(int hd) {
+    constexpr bool kLo = sizeof(T) == 4;
+    hp = up16(hd);                       // hd padded to the MMA depth
+    ldq = hp + 8;                        // q and K plane row: bf16 elements
+    ldv = DC + 8;                        // V plane row
+    rk = up16(hd * static_cast<int>(sizeof(T)));               // raw K row, bytes
+    rv = up16((hd < DC ? hd : DC) * static_cast<int>(sizeof(T)));  // raw V row
+    q_hi = 0;                                   // bf16 [kTcRows][ldq]
+    q_lo = q_hi + kTcRows * ldq * 2;            // bf16 [kTcRows][ldq]
+    k_hi = q_lo + kTcRows * ldq * 2;            // bf16 [BN][ldq]
+    k_lo = k_hi + BN * ldq * 2;                 // bf16 [BN][ldq], f32 pages only
+    v_hi = k_lo + (kLo ? BN * ldq * 2 : 0);     // bf16 [BN][ldv]
+    v_lo = v_hi + BN * ldv * 2;                 // bf16 [BN][ldv], f32 pages only
+    raw_k = v_lo + (kLo ? BN * ldv * 2 : 0);    // T [BN][rk bytes]
+    raw_v = raw_k + BN * rk;                    // T [BN][rv bytes]
+    bt = raw_v + BN * rv;                       // int [kBtStage]
+    total = bt + kBtStage * 4;
+  }
+};
+
+// Grid: (n_rb * n_cb, n_kv, B); x = cb * n_rb + (n_rb - 1 - rb), so the row
+// blocks with the most positions to attend start first.  Row block rb
+// holds stacked rows [64 rb, 64 rb + 64); column block cb computes output
+// dims [cb * DC, cb * DC + DC).  8 warps: warp w takes rows 16 (w mod 4)
+// .. + 15 over the half of each tile's positions given by its group w / 4
+// (each group keeps its own m, l, acc; merged at the end).  DC = the
+// output columns a warp holds in registers (16..128); BN = positions per
+// tile (64; 32 for f32 pages, whose residual planes double the staging).
+template <typename T, int DC, int BN>
+__global__ void __launch_bounds__(kTcThreads, 2)
+paged_flash_mq_tc_kernel(const float* __restrict__ q,        // [B, S, H, hd]
+                         const T* __restrict__ k_pages,      // [n_pages, page, n_kv, hd]
+                         const T* __restrict__ v_pages,
+                         const int* __restrict__ block_tables,  // [B, pages_per_seq]
+                         const int* __restrict__ lengths,       // [B]
+                         const int* __restrict__ q_start,       // [B]
+                         const float* __restrict__ k_scale,     // [B, n_kv]
+                         const float* __restrict__ v_scale,
+                         float* __restrict__ out,               // [B, S, H, hd]
+                         int S, int H, int n_kv, int hd, int page_size, int pages_per_seq,
+                         int n_rb, float q_scale) {
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kPW = BN / 2;    // positions of a tile per warp group
+  constexpr int kNT = kPW / 8;   // 8-position n-tiles of a warp's scores
+  constexpr int kDT = DC / 8;    // 8-column n-tiles of a warp's output
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const TcSmem<T, DC, BN> L(hd);
+  __nv_bfloat16* q_hi = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.q_hi);
+  __nv_bfloat16* q_lo = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.q_lo);
+  __nv_bfloat16* k_hi = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.k_hi);
+  __nv_bfloat16* k_lo = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.k_lo);
+  __nv_bfloat16* v_hi = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.v_hi);
+  __nv_bfloat16* v_lo = reinterpret_cast<__nv_bfloat16*>(tc_smem + L.v_lo);
+  unsigned char* raw_k = tc_smem + L.raw_k;
+  unsigned char* raw_v = tc_smem + L.raw_v;
+  int* bt_s = reinterpret_cast<int*>(tc_smem + L.bt);
+  const int hp = L.hp, ldq = L.ldq, ldv = L.ldv;
+
+  const int rb = n_rb - 1 - static_cast<int>(blockIdx.x) % n_rb;
+  const int c0 = (static_cast<int>(blockIdx.x) / n_rb) * DC;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / n_kv;
+  const int n_rows = S * group;
+  const int row0 = rb * kTcRows;
+  const int vcols = min(DC, hd - c0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wr = warp & 3;       // the warp's 16 rows
+  const int wg = warp >> 2;      // and its half of each tile
+  const int g = lane >> 2;       // the thread's rows g and g + 8 of the 16
+  const int t4 = lane & 3;       // and its columns 2 t4, 2 t4 + 1 of each n-tile
+
+  const int len = lengths[b];
+  const int qs = q_start[b];
+  const float ksc = k_scale[b * n_kv + h];
+  const float vsc = v_scale[b * n_kv + h];
+  const int* bt_row = block_tables + static_cast<size_t>(b) * pages_per_seq;
+  // The block-table entries (the first kBtStage of the row, whatever its
+  // length) load with the row's length and scales; staged once per CTA
+  const int n_bt = min(pages_per_seq, kBtStage);
+  const int bt_v = tid < n_bt ? bt_row[tid] : 0;
+  const int lim = min(len, pages_per_seq * page_size);
+  // Last position any row of this CTA may attend (exact: a fully masked
+  // tile leaves m, l and acc as they are)
+  const int last_row = min(row0 + kTcRows, n_rows) - 1;
+  const int n_pos = min(lim, qs + last_row / group + 1);
+  const int n_tiles = n_pos > 0 ? (n_pos + BN - 1) / BN : 0;
+  if (tid < n_bt) bt_s[tid] = bt_v;
+
+  const size_t page_stride = static_cast<size_t>(page_size) * n_kv * hd;
+  const int pos_stride = n_kv * hd;  // between positions of a page
+  const int head_off = h * hd;
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = (hd * static_cast<int>(sizeof(T))) % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(k_pages) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(v_pages) & 15) == 0;
+  // powers of two (the serving shapes) index with shifts, not divisions
+  const bool page_pow2 = (page_size & (page_size - 1)) == 0;
+  const int page_shift = __ffs(page_size) - 1;
+  // Element offset of position p's K/V row in the pool: the block-table
+  // entry replaces the TPU kernel's scalar-prefetch index_map
+  auto row_off = [&](int p) -> size_t {
+    const int pg = page_pow2 ? p >> page_shift : p / page_size;
+    const int phys = pg < kBtStage ? bt_s[pg] : bt_row[pg];
+    return phys * page_stride + ((p - pg * page_size) * pos_stride + head_off);
+  };
+  // 16-byte cp.async copies of BN rows of `chunks` 16-byte chunks each
+  // (position t0 + j's row at `pool` + row_off + col0) to `dst` rows of
+  // `rs` bytes; positions past n_pos are zero-filled
+  auto copy_rows = [&](unsigned char* dst, int rs, const T* pool, int col0, int chunks,
+                       int t0) {
+    if (page_pow2 && (chunks & (chunks - 1)) == 0) {
+      // the serving shapes: a thread keeps one chunk column and walks rows
+      const int sh = __ffs(chunks) - 1;
+      const int cc = tid & (chunks - 1);
+      const T* src0 = pool + head_off + col0 + cc * kVec;
+      unsigned char* dst0 = dst + cc * 16;
+#pragma unroll 4
+      for (int j = tid >> sh; j < BN; j += kTcThreads >> sh) {
+        const int p = t0 + j;
+        const bool in = p < n_pos;
+        const int pg = p >> page_shift;
+        const int phys = !in ? 0 : pg < kBtStage ? bt_s[pg] : bt_row[pg];
+        cp_async16(dst0 + j * rs,
+                   src0 + (in ? phys * page_stride + (p & (page_size - 1)) * pos_stride : 0),
+                   in);
+      }
+      return;
+    }
+#pragma unroll 1
+    for (int c = tid; c < BN * chunks; c += kTcThreads) {
+      const int j = c / chunks;
+      const int cc = c - j * chunks;
+      const int p = t0 + j;
+      const bool in = p < n_pos;
+      cp_async16(dst + j * rs + cc * 16, pool + (in ? row_off(p) + col0 : 0) + cc * kVec, in);
+    }
+  };
+  auto issue = [&](int t0) {  // K rows and this CTA's V columns of a tile
+    if (!vec) return;
+    copy_rows(raw_k, L.rk, k_pages, 0, hd / kVec, t0);
+    copy_rows(raw_v, L.rv, v_pages, c0, vcols / kVec, t0);
+  };
+  // A staged tile -> bf16 planes (int8 and bf16 exactly; f32 as hi + lo),
+  // 8 elements at a time; rows that are not 16-byte multiples read the
+  // pool directly, element by element
+  auto convert_matrix = [&](const unsigned char* raw, int rs, const T* pool, int col0,
+                            int ncols, int units, __nv_bfloat16* hi, __nv_bfloat16* lo,
+                            int ld, int t0) {
+    if (vec && (ncols & 7) == 0 && (units & (units - 1)) == 0) {
+      const int sh = __ffs(units) - 1;
+#pragma unroll 4
+      for (int u = tid; u < BN * units; u += kTcThreads) {
+        const int j = u >> sh;
+        const int d0 = (u - (j << sh)) * 8;
+        Raw8<T> w;
+        if (d0 < ncols) {
+          w = *reinterpret_cast<const Raw8<T>*>(raw + j * rs + d0 * sizeof(T));
+        } else {
+          T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) e[i] = zero_of<T>();
+        }
+        float x[8];
+        cvt<T, 8>(&w, x);
+        store8<kLo>(hi + j * ld + d0, lo + j * ld + d0, x);
+      }
+      return;
+    }
+#pragma unroll 1
+    for (int u = tid; u < BN * units; u += kTcThreads) {
+      const int j = u / units;
+      const int d0 = (u - j * units) * 8;
+      const int p = t0 + j;
+      const T* src = vec ? reinterpret_cast<const T*>(raw + j * rs) + d0
+                         : (p < n_pos ? pool + row_off(p) + col0 + d0 : nullptr);
+      const Raw8<T> w = load_unit<T>(src, d0, ncols);
+      float x[8];
+      cvt<T, 8>(&w, x);
+      store8<kLo>(hi + j * ld + d0, lo + j * ld + d0, x);
+    }
+  };
+  auto convert = [&](int t0) {
+    convert_matrix(raw_k, L.rk, k_pages, 0, hd, hp >> 3, k_hi, k_lo, ldq, t0);
+    convert_matrix(raw_v, L.rv, v_pages, c0, vcols, DC / 8, v_hi, v_lo, ldv, t0);
+  };
+
+  __syncthreads();  // bt_s in place
+  if (n_tiles > 0) issue(0);  // in flight while q is staged
+  cp_async_commit();
+
+  // q, pre-scaled by sm_scale * log2(e) * k_scale (the K dequantization
+  // and the exp -> exp2 change of base, folded), as bf16 hi + lo planes;
+  // dims past hd and rows past n_rows are 0.  16-byte loads straight to
+  // registers, kQU a thread in flight at once; the first tile's barrier
+  // publishes the planes.
+  const float q_mul = q_scale * ksc;
+  // stacked row -> element offset of its q / out row from the (b, kv head)
+  // base: row r is query r / group of head h * group + r mod group
+  const bool g_pow2 = (group & (group - 1)) == 0;
+  const int g_shift = __ffs(group) - 1;
+  const size_t bh_off = (static_cast<size_t>(b) * S * H + h * group) * hd;
+  auto row_elem = [&](int row) -> size_t {
+    const int s = g_pow2 ? row >> g_shift : row / group;
+    return bh_off + static_cast<size_t>(s * H + (row - s * group)) * hd;
+  };
+  auto q_row = [&](int row) -> const float* { return q + row_elem(row); };
+  const int q4c = hd >> 2;  // 16-byte chunks of a q row
+  if ((hd & 3) == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+      (q4c & (q4c - 1)) == 0 && q4c <= kTcThreads) {
+    constexpr int kQU = 8;
+    const int cs = __ffs(q4c) - 1;
+    const int d = (tid & (q4c - 1)) * 4;
+    const int rstep = kTcThreads >> cs;
+    for (int r0 = tid >> cs; r0 < kTcRows; r0 += rstep * kQU) {
+      float4 v[kQU];
+#pragma unroll
+      for (int u = 0; u < kQU; ++u) {
+        const int r = r0 + u * rstep;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < kTcRows && row0 + r < n_rows)
+          v[u] = __ldg(reinterpret_cast<const float4*>(q_row(row0 + r) + d));
+      }
+#pragma unroll
+      for (int u = 0; u < kQU; ++u) {
+        const int r = r0 + u * rstep;
+        if (r < kTcRows) {
+          uint2 hi, lo;
+          split2(v[u].x * q_mul, v[u].y * q_mul, hi.x, lo.x);
+          split2(v[u].z * q_mul, v[u].w * q_mul, hi.y, lo.y);
+          *reinterpret_cast<uint2*>(q_hi + r * ldq + d) = hi;
+          *reinterpret_cast<uint2*>(q_lo + r * ldq + d) = lo;
+        }
+      }
+    }
+    for (int i = tid; i < kTcRows * (hp - hd); i += kTcThreads) {  // padding dims
+      const int r = i / (hp - hd);
+      const int dd = hd + i - r * (hp - hd);
+      q_hi[r * ldq + dd] = q_lo[r * ldq + dd] = __float2bfloat16(0.f);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = tid; i < kTcRows * (hp >> 1); i += kTcThreads) {
+      const int r = i / (hp >> 1);
+      const int dd = (i - r * (hp >> 1)) * 2;
+      const int row = row0 + r;
+      const float* qr = row < n_rows ? q_row(row) : nullptr;
+      const float x0 = qr && dd < hd ? qr[dd] * q_mul : 0.f;
+      const float x1 = qr && dd + 1 < hd ? qr[dd + 1] * q_mul : 0.f;
+      uint32_t hi, lo;
+      split2(x0, x1, hi, lo);
+      *reinterpret_cast<uint32_t*>(q_hi + r * ldq + dd) = hi;
+      *reinterpret_cast<uint32_t*>(q_lo + r * ldq + dd) = lo;
+    }
+  }
+
+  // This warp's rows, the query position of the thread's two rows (-1:
+  // a row past n_rows, which attends nothing and is not written)
+  const int wrow0 = row0 + wr * 16;
+  const bool warp_live = wrow0 < n_rows;
+  const int w_last = warp_live ? min(qs + min(wrow0 + 15, n_rows - 1) / group, n_pos - 1) : -1;
+  const int ra = wrow0 + g;
+  const int rbb = ra + 8;
+  const int qpos_a = ra < n_rows ? qs + ra / group : -1;
+  const int qpos_b = rbb < n_rows ? qs + rbb / group : -1;
+  float m_a = kMasked, m_b = kMasked, l_a = 0.f, l_b = 0.f;
+  float acc[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  // ldmatrix row/column offsets of this lane (see the fragment layouts of
+  // mma.m16n8k16): A and V (.trans) take rows (lane & 7) + 8 ((lane >> 3)
+  // & 1) and columns 8 (lane >> 4); K takes rows (lane & 7) + 8 (lane >> 4)
+  // and columns 8 ((lane >> 3) & 1)
+  const int lr_a = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lc_a = (lane >> 4) * 8;
+  const int lr_k = (lane & 7) + (lane >> 4) * 8;
+  const int lc_k = ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* qa_hi = q_hi + (wr * 16 + lr_a) * ldq + lc_a;
+  const __nv_bfloat16* qa_lo = q_lo + (wr * 16 + lr_a) * ldq + lc_a;
+  const int kp0 = wg * kPW;  // the warp's first position in a tile
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = t * BN;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t staged; every warp is done with tile t - 1's planes
+    convert(t0);
+    __syncthreads();  // planes of tile t ready; the staging buffers free
+    if (t + 1 < n_tiles) issue(t0 + BN);  // in flight during tile t's products
+    cp_async_commit();
+    const int w0 = t0 + kp0;
+    if (w0 > w_last) continue;  // warp-uniform: nothing to attend
+    // 16-position groups of the warp's half that hold a position its rows
+    // may attend; the rest are masked for every row, and skipped
+    const int nl16 = min(kPW / 16, (w_last - w0) / 16 + 1);
+
+    // S = q K^T in log2 units: q_hi K + q_lo K (+ q_hi K_lo for f32
+    // pages), each accumulator's two products kNT MMAs apart
+    float sc[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    const __nv_bfloat16* kb_hi = k_hi + (kp0 + lr_k) * ldq + lc_k;
+    const __nv_bfloat16* kb_lo = k_lo + (kp0 + lr_k) * ldq + lc_k;
+#pragma unroll 2
+    for (int kk = 0; kk < hp; kk += 16) {
+      uint32_t ah[4], al[4], bk[kNT / 2][4];
+      ldsm_x4(ah, qa_hi + kk);
+      ldsm_x4(al, qa_lo + kk);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np)
+        if (np < nl16) ldsm_x4(bk[np], kb_hi + np * 16 * ldq + kk);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        if (np < nl16) {
+          mma_bf16(sc[2 * np], ah, bk[np][0], bk[np][1]);
+          mma_bf16(sc[2 * np + 1], ah, bk[np][2], bk[np][3]);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        if (np < nl16) {
+          mma_bf16(sc[2 * np], al, bk[np][0], bk[np][1]);
+          mma_bf16(sc[2 * np + 1], al, bk[np][2], bk[np][3]);
+        }
+      }
+      if constexpr (kLo) {
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np)
+          if (np < nl16) ldsm_x4(bk[np], kb_lo + np * 16 * ldq + kk);
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          if (np < nl16) {
+            mma_bf16(sc[2 * np], ah, bk[np][0], bk[np][1]);
+            mma_bf16(sc[2 * np + 1], ah, bk[np][2], bk[np][3]);
+          }
+        }
+      }
+    }
+
+    // Online softmax on the accumulator fragments: each row's max over
+    // the quad of lanes that share it; masked logits are the finite
+    // -1e30 and their weights are re-masked to 0
+    float mx_a = kMasked, mx_b = kMasked;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = w0 + j * 8 + 2 * t4 + e;
+        sc[j][e] = (p <= qpos_a && p < lim) ? sc[j][e] : kMasked;
+        sc[j][2 + e] = (p <= qpos_b && p < lim) ? sc[j][2 + e] : kMasked;
+        mx_a = fmaxf(mx_a, sc[j][e]);
+        mx_b = fmaxf(mx_b, sc[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, o));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, o));
+    }
+    const float mn_a = fmaxf(m_a, mx_a);
+    const float mn_b = fmaxf(m_b, mx_b);
+    const float al_a = exp2f(m_a - mn_a);
+    const float al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = w0 + j * 8 + 2 * t4 + e;
+        sc[j][e] = (p <= qpos_a && p < lim) ? exp2f(sc[j][e] - mn_a) : 0.f;
+        sc[j][2 + e] = (p <= qpos_b && p < lim) ? exp2f(sc[j][2 + e] - mn_b) : 0.f;
+        sum_a += sc[j][e];
+        sum_b += sc[j][2 + e];
+      }
+    }
+    l_a = l_a * al_a + sum_a;  // the thread's share; quad-summed at the end
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) {
+      acc[j][0] *= al_a;
+      acc[j][1] *= al_a;
+      acc[j][2] *= al_b;
+      acc[j][3] *= al_b;
+    }
+
+    // acc += P V: P's accumulator fragments become the A fragments of the
+    // product in registers, as p_hi + p_lo (x V_hi, and p_hi x V_lo for
+    // f32 pages); groups of positions past nl16 have P = 0 and are skipped
+#pragma unroll
+    for (int kk = 0; kk < kPW / 16; ++kk) {
+      if (kk >= nl16) break;
+      uint32_t ph[4], pl[4];
+      split2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      const int voff = (kp0 + kk * 16 + lr_a) * ldv + lc_a;
+#pragma unroll
+      for (int np = 0; np < kDT / 2; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, v_hi + voff + np * 16);
+        mma_bf16(acc[2 * np], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * np], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], pl, bv[2], bv[3]);
+        if constexpr (kLo) {
+          ldsm_x4_t(bv, v_lo + voff + np * 16);
+          mma_bf16(acc[2 * np], ph, bv[0], bv[1]);
+          mma_bf16(acc[2 * np + 1], ph, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // The two groups' (m, l, acc) of each row merge: group 1 leaves its raw
+  // acc (over the q planes, rows of ldo floats) and m, l (over bt_s);
+  // group 0 folds them into its own and writes out = acc / max(l, 1e-30) *
+  // v_scale (the V dequantization, folded) in place.  A row with no valid
+  // position has acc = 0 and gives exactly 0.  Where the CTA's columns are
+  // a multiple of 4 the tile then leaves as 16-byte row segments.
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l_a += __shfl_xor_sync(kFull, l_a, o);
+    l_b += __shfl_xor_sync(kFull, l_b, o);
+  }
+  const bool staged = (vcols & 3) == 0;
+  float* o_s = reinterpret_cast<float*>(tc_smem + L.q_hi);
+  float* ml_s = reinterpret_cast<float*>(bt_s);  // [kTcRows][m, l]
+  const int ldo = DC + 8;  // conflict-free float2 accesses per half warp
+  __syncthreads();         // every warp is done with the q planes and bt_s
+  if (wg == 1) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int lrow = wr * 16 + g + 8 * half;
+#pragma unroll
+      for (int j = 0; j < kDT; ++j)
+        *reinterpret_cast<float2*>(o_s + lrow * ldo + j * 8 + 2 * t4) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      if (t4 == 0) {
+        ml_s[lrow * 2] = half ? m_b : m_a;
+        ml_s[lrow * 2 + 1] = half ? l_b : l_a;
+      }
+    }
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int lrow = wr * 16 + g + 8 * half;
+      const int row = row0 + lrow;
+      const float m0 = half ? m_b : m_a;
+      const float m1 = ml_s[lrow * 2];
+      const float mx = fmaxf(m0, m1);
+      const float f0 = exp2f(m0 - mx);
+      const float f1 = exp2f(m1 - mx);
+      const float l = (half ? l_b : l_a) * f0 + ml_s[lrow * 2 + 1] * f1;
+      const float f = vsc / fmaxf(l, 1e-30f);
+      float* o = out + c0;
+      if (!staged && row < n_rows) o += row_elem(row);
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        const int d = j * 8 + 2 * t4;
+        float2* po = reinterpret_cast<float2*>(o_s + lrow * ldo + d);
+        const float2 p1 = *po;
+        const float x0 = (acc[j][2 * half] * f0 + p1.x * f1) * f;
+        const float x1 = (acc[j][2 * half + 1] * f0 + p1.y * f1) * f;
+        if (staged) {
+          *po = make_float2(x0, x1);
+        } else if (row < n_rows) {
+          if (d < vcols) o[d] = x0;
+          if (d + 1 < vcols) o[d + 1] = x1;
+        }
+      }
+    }
+  }
+  if (staged) {
+    __syncthreads();
+    const int c4 = vcols >> 2;
+    const bool c4_pow2 = (c4 & (c4 - 1)) == 0;
+    const int c4_shift = __ffs(c4) - 1;
+#pragma unroll 4
+    for (int i = tid; i < kTcRows * c4; i += kTcThreads) {
+      const int r = c4_pow2 ? i >> c4_shift : i / c4;
+      const int c = (i - r * c4) * 4;
+      if (row0 + r < n_rows)
+        *reinterpret_cast<float4*>(out + row_elem(row0 + r) + c0 + c) =
+            *reinterpret_cast<const float4*>(o_s + r * ldo + c);
+    }
+  }
+}
+
+template <typename T, int DC, int BN>
+int launch_tc(const float* q, const void* k_pages, const void* v_pages, const int* bt,
+              const int* lengths, const int* q_start, const float* ks, const float* vs,
+              float* out, int B, int S, int H, int n_kv, int hd, int page_size,
+              int pages_per_seq, cudaStream_t stream) {
+  const TcSmem<T, DC, BN> L(hd);
+  if (L.total > 232448) return -1;  // the most shared memory a CTA may have
+  auto kernel = paged_flash_mq_tc_kernel<T, DC, BN>;
+  if (L.total > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n_rows = S * (H / n_kv);
+  const int n_rb = (n_rows + kTcRows - 1) / kTcRows;
+  const int n_cb = (hd + DC - 1) / DC;
+  const dim3 grid(n_rb * n_cb, n_kv, B);
+  kernel<<<grid, kTcThreads, L.total, stream>>>(
+      q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages), bt, lengths,
+      q_start, ks, vs, out, S, H, n_kv, hd, page_size, pages_per_seq, n_rb,
+      kLog2e / sqrtf(static_cast<float>(hd)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// DC: the output columns a CTA holds, hd padded to 16 and rounded up to
+// 16, 32, 64 or 128; above 128 dims the output is split into column
+// blocks of 128, one CTA each (each computes the whole q K^T)
+template <typename T, int BN>
+int launch_tc_dc(const float* q, const void* kp, const void* vp, const int* bt,
+                 const int* lengths, const int* q_start, const float* ks, const float* vs,
+                 float* out, int B, int S, int H, int n_kv, int hd, int page_size,
+                 int pages_per_seq, cudaStream_t stream) {
+#define PFA_TC(D)                                                                    \
+  launch_tc<T, D, BN>(q, kp, vp, bt, lengths, q_start, ks, vs, out, B, S, H, n_kv, hd, \
+                      page_size, pages_per_seq, stream)
+  if (hd <= 16) return PFA_TC(16);
+  if (hd <= 32) return PFA_TC(32);
+  if (hd <= 64) return PFA_TC(64);
+  return PFA_TC(128);
+#undef PFA_TC
+}
+
+int launch_tc_dtype(const void* q, const void* k_pages, const void* v_pages,
+                    const void* block_tables, const void* lengths, const void* q_start,
+                    const void* k_scale, const void* v_scale, void* out, int B, int S,
+                    int H, int n_kv, int hd, int page_size, int pages_per_seq,
+                    int page_dtype, cudaStream_t st) {
+  const float* qf = static_cast<const float*>(q);
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* q0 = static_cast<const int*>(q_start);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  float* o = static_cast<float*>(out);
+  switch (page_dtype) {
+    case 0:
+      return launch_tc_dc<int8_t, 64>(qf, k_pages, v_pages, bt, ln, q0, ks, vs, o, B, S, H,
+                                      n_kv, hd, page_size, pages_per_seq, st);
+    case 1:
+      return launch_tc_dc<__nv_bfloat16, 64>(qf, k_pages, v_pages, bt, ln, q0, ks, vs, o, B,
+                                             S, H, n_kv, hd, page_size, pages_per_seq, st);
+    case 2:
+      return launch_tc_dc<float, 32>(qf, k_pages, v_pages, bt, ln, q0, ks, vs, o, B, S, H,
+                                     n_kv, hd, page_size, pages_per_seq, st);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 
 // Page dtype codes: 0 = int8, 1 = bfloat16, 2 = float32.
@@ -853,8 +1556,8 @@ int launch_split_dpl(const float* q, const void* kp, const void* vp, const int* 
 // launch, or -1 for arguments the kernels do not take (checked again by the
 // Python wrapper).
 
-// The tiled kernel of the first port at any shape (prefill, and a yardstick
-// for the split kernel at decode and verify).
+// The tiled kernel of the first port at any shape: the yardstick the
+// split and tensor-core kernels are timed and checked beside.
 extern "C" int paged_flash_mq_tiled_launch(const void* q, const void* k_pages,
                                            const void* v_pages, const void* block_tables,
                                            const void* lengths, const void* q_start,
@@ -889,36 +1592,36 @@ extern "C" int paged_flash_mq_tiled_launch(const void* q, const void* k_pages,
   }
 }
 
-// The serving path: the split-KV kernel when S * (H / n_kv) <= 16, split
-// over n_splits chunks of `chunk` positions (a whole number of pages;
-// n_splits * chunk covers the block table's span, n_splits - 1 chunks do
-// not), with workspace `ws` ([B, n_kv, n_splits, n_rows, hd + 2] f32) and
-// `counters` (n_counters zeroed int32, at least B * n_kv) when n_splits > 1;
-// else the tiled kernel, which reads neither.
+// The serving path, one launch per call: the split-KV kernel when
+// S * (H / n_kv) <= 16, split over n_splits chunks of `chunk` positions (a
+// whole number of pages; n_splits * chunk covers the block table's span,
+// n_splits - 1 chunks do not), with workspace `ws` when n_splits > 1:
+// [B, n_kv, n_splits, n_rows, hd + 2] f32 partials, then B * n_kv int32
+// split counters, which are zeroed here on `stream` before the launch;
+// else the tensor-core kernel, which reads no workspace.
 extern "C" int paged_flash_mq_launch(const void* q, const void* k_pages,
                                      const void* v_pages, const void* block_tables,
                                      const void* lengths, const void* q_start,
                                      const void* k_scale, const void* v_scale, void* out,
-                                     void* ws, void* counters, int B, int S, int H, int n_kv,
-                                     int hd, int page_size, int pages_per_seq,
-                                     int page_dtype, int chunk, int n_splits,
-                                     int n_counters, void* stream) {
+                                     void* ws, int B, int S, int H, int n_kv, int hd,
+                                     int page_size, int pages_per_seq, int page_dtype,
+                                     int chunk, int n_splits, void* stream) {
   if (hd < 1 || hd > 256 || n_kv < 1 || H % n_kv != 0 || page_size < 1 ||
       pages_per_seq < 1)
     return -1;
   if (B == 0 || S == 0) return 0;
-  if (S * (H / n_kv) > kSplitRows)
-    return paged_flash_mq_tiled_launch(q, k_pages, v_pages, block_tables, lengths, q_start,
-                                       k_scale, v_scale, out, B, S, H, n_kv, hd, page_size,
-                                       pages_per_seq, page_dtype, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_rows = S * (H / n_kv);
+  if (n_rows > kSplitRows)
+    return launch_tc_dtype(q, k_pages, v_pages, block_tables, lengths, q_start, k_scale,
+                           v_scale, out, B, S, H, n_kv, hd, page_size, pages_per_seq,
+                           page_dtype, st);
   const int span = pages_per_seq * page_size;
   if (chunk < 1 || chunk % page_size != 0 || n_splits < 1 || n_splits > 65535 ||
       static_cast<long long>(n_splits) * chunk < span ||
       static_cast<long long>(n_splits - 1) * chunk >= span)
     return -1;
-  if (n_splits > 1 && (ws == nullptr || counters == nullptr ||
-                       static_cast<long long>(B) * n_kv > n_counters))
-    return -1;
+  if (n_splits > 1 && ws == nullptr) return -1;
   const float* qf = static_cast<const float*>(q);
   const int* bt = static_cast<const int*>(block_tables);
   const int* ln = static_cast<const int*>(lengths);
@@ -927,8 +1630,16 @@ extern "C" int paged_flash_mq_launch(const void* q, const void* k_pages,
   const float* vs = static_cast<const float*>(v_scale);
   float* o = static_cast<float*>(out);
   float* w = static_cast<float*>(ws);
-  int* cnt = static_cast<int*>(counters);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* cnt = nullptr;
+  if (n_splits > 1) {
+    // this call's own counters, stream-ordered like its workspace: two
+    // launches on two streams never share one
+    cnt = reinterpret_cast<int*>(w + static_cast<size_t>(B) * n_kv * n_splits * n_rows *
+                                         (hd + 2));
+    const cudaError_t e =
+        cudaMemsetAsync(cnt, 0, static_cast<size_t>(B) * n_kv * sizeof(int), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   switch (page_dtype) {
     case 0:
       return launch_split_dpl<int8_t>(qf, k_pages, v_pages, bt, ln, q0, ks, vs, o, w, cnt, B,

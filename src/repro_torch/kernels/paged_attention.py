@@ -14,10 +14,10 @@ speculative verify.
   (``csrc/paged_attention.cu``) on CUDA tensors and counts its launches
   in ``paged_flash_mq.launches``: the split-KV kernel for decode and
   verify (at most 16 query rows per kv head, split over the plan of
-  ``_plan_splits``), the tiled kernel for prefill.
-  ``paged_flash_mq_tiled`` runs the tiled kernel at any shape, to time
-  and check the two designs side by side; the serving path does not
-  call it.
+  ``_plan_splits``), the tensor-core kernel for prefill (its launches
+  also in ``paged_flash_mq.tc_launches``).  ``paged_flash_mq_tiled``
+  runs the first port's tiled kernel at any shape, to time and check
+  the designs side by side; the serving path does not call it.
 * ``paged_attention_mq_ref`` / ``paged_attention_ref`` are the plain
   PyTorch versions: the oracle the kernel is held against, and the path
   CPU tensors take.
@@ -145,9 +145,9 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
 @functools.cache
 def _launcher():
     """The serving entry point (split-KV kernel for decode and verify, the
-    tiled kernel for prefill), built and loaded on first use."""
+    tensor-core kernel for prefill), built and loaded on first use."""
     fn = _build.load("paged_attention").paged_flash_mq_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -168,17 +168,17 @@ def _tiled_launcher():
 #
 # The split kernel runs a grid of (n_kv, n_splits, B) CTAs, each over
 # ``chunk`` positions of its row's block table, and merges the splits in
-# the same launch through a workspace and one int32 counter per (b, kv
-# head).  The plan comes from shapes alone, so no length is read back to
-# the host on the serving path.
+# the same launch through the call's own workspace: f32 partials, then one
+# int32 counter per (b, kv head), which the launch zeroes on its stream.
+# Nothing outlives a call, so launches on two streams of one card cannot
+# share counters, and a CUDA graph captures the zeroing with the launch.
+# The plan comes from shapes alone, so no length is read back to the host
+# on the serving path.
 
 _SPLIT_ROWS = 16          # query rows per kv head the split kernel takes
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _CTAS_PER_SM = 8          # grid cap per SM (about 6 are resident at once)
 _MIN_CHUNK = 32           # positions: one tile of the kernel
-_COUNTERS = 1 << 16       # (b, kv head) pairs a launch may split
-
-_COUNTER_BUFS: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,21 +202,14 @@ def _plan_splits(batch: int, n_kv: int, pages_per_seq: int,
     return chunk, -(-span // chunk)
 
 
-def _counters(device: torch.device) -> torch.Tensor:
-    """The device's zeroed int32 split counters, allocated on first use
-    (never inside a CUDA-graph capture: a captured allocation would be
-    the graph's).  Every split launch leaves its counters at 0."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    buf = _COUNTER_BUFS.get(idx)
-    if buf is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("paged_flash_mq: call once outside CUDA-graph "
-                               "capture first (its split counters are "
-                               "allocated on the first call)")
-        buf = _COUNTER_BUFS[idx] = torch.zeros(
-            _COUNTERS, dtype=torch.int32, device=torch.device("cuda", idx))
-    return buf
+def _split_workspace_numel(batch: int, n_kv: int, n_splits: int,
+                           n_rows: int, hd: int) -> int:
+    """4-byte words of a split launch's workspace: the f32 partials
+    ``[B, n_kv, n_splits, n_rows, hd + 2]`` (acc, then m and l), then
+    ``B * n_kv`` int32 counters; none when the launch does not split."""
+    if n_splits <= 1:
+        return 0
+    return batch * n_kv * (n_splits * n_rows * (hd + 2) + 1)
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
@@ -269,50 +262,49 @@ def paged_flash_mq(q: torch.Tensor, k_pages: torch.Tensor,
     q_start int32; scales None, [n_kv] or [B, n_kv] → f32 [B, S, n_heads,
     hd].  Block-table entries must lie in [0, n_pages).  Decode and verify
     (S * n_heads / n_kv <= 16) take the split-KV kernel over the plan of
-    ``_plan_splits``, prefill the tiled kernel; one launch either way."""
+    ``_plan_splits``, more rows the tensor-core kernel; one launch either
+    way."""
     b, s, n_heads, hd = q.shape
     _, page_size, n_kv, _ = k_pages.shape
     ks, vs = _validated(q, k_pages, v_pages, block_tables, lengths, q_start,
                         k_scale, v_scale)
     n_rows = s * (n_heads // n_kv)
     chunk = n_splits = 0
-    ws = cnt = None
+    ws = None
     if n_rows <= _SPLIT_ROWS and b * s:
         chunk, n_splits = _plan_splits(b, n_kv, block_tables.shape[1],
                                        page_size)
-        if n_splits > 1:
-            if b * n_kv > _COUNTERS:
-                raise ValueError(f"B * n_kv = {b * n_kv} exceeds the "
-                                 f"{_COUNTERS} split counters")
-            cnt = _counters(q.device)
-            ws = torch.empty(b * n_kv * n_splits * n_rows * (hd + 2),
-                             dtype=torch.float32, device=q.device)
+        numel = _split_workspace_numel(b, n_kv, n_splits, n_rows, hd)
+        if numel:
+            ws = torch.empty(numel, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = _launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), q_start.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
         0 if ws is None else ws.data_ptr(),
-        0 if cnt is None else cnt.data_ptr(),
         b, s, n_heads, n_kv, hd, page_size, block_tables.shape[1],
-        _PAGE_DTYPES[k_pages.dtype], chunk, n_splits, _COUNTERS,
+        _PAGE_DTYPES[k_pages.dtype], chunk, n_splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_flash_mq launch failed (code {rc})")
     paged_flash_mq.launches += 1
+    if n_rows > _SPLIT_ROWS and b * s:
+        paged_flash_mq.tc_launches += 1
     return out
 
 
 paged_flash_mq.launches = 0
+paged_flash_mq.tc_launches = 0
 
 
 def paged_flash_mq_tiled(q, k_pages, v_pages, block_tables, lengths, q_start,
                          k_scale=None, v_scale=None) -> torch.Tensor:
     """The tiled kernel (the first port's design: one CTA per block of 16
-    query rows walks all its row's pages) at any shape, with
-    ``paged_flash_mq``'s arguments.  The serving path runs it for
-    prefill through ``paged_flash_mq``; this door is for timing and
-    checking it beside the split kernel.  Counts its own launches in
+    query rows walks all its row's pages, f32 products on CUDA cores) at
+    any shape, with ``paged_flash_mq``'s arguments.  The serving path
+    does not run it; this door is for timing and checking it beside the
+    split and tensor-core kernels.  Counts its own launches in
     ``paged_flash_mq_tiled.launches``."""
     b, s, n_heads, hd = q.shape
     _, page_size, n_kv, _ = k_pages.shape
@@ -360,7 +352,8 @@ def _local(q, k_pages, v_pages, block_tables, lengths, q_start,
 # [n_pages, page, n_kv / tp, hd] and scales [B, n_kv / tp]: at decode a
 # shard moves 1/tp of the pool's bytes, so its bound is the unsharded
 # bound / tp.  A decode shard's grid is (n_kv / tp, n_splits, B) CTAs of
-# the split kernel, planned for the shard's own n_kv / tp.
+# the split kernel, planned for the shard's own n_kv / tp; a prefill
+# shard's is (row blocks, n_kv / tp, B) CTAs of the tensor-core kernel.
 
 
 def paged_flash_mq_per_shard(qs, k_pages, v_pages, block_tables, lengths,

@@ -63,21 +63,26 @@ def _case(seed, *, dtype, group, s, b=4, n_kv=4, hd=128, page=16, per=6,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [1, 4, 8, 16, 128])
+@pytest.mark.parametrize("s", [1, 4, 8, 16, 17, 33, 64, 128])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
                                    torch.float32])
-@pytest.mark.parametrize("hd", [128, 12])
+@pytest.mark.parametrize("hd", [128, 12, 64, 256])
 def test_kernel_matches_plain(cuda, hd, dtype, group, s):
-    """Tolerance 1e-4 of max |plain|: f32 sums in another order.  S *
-    group <= 16 takes the split-KV kernel (96 positions: 3 splits), more
-    rows the tiled one.  hd 12 is no multiple of 16 bytes for int8 and
-    bf16 rows, so those pages take the kernels' scalar loads; f32 rows of
-    12 take 16-byte loads, three to a row."""
+    """Tolerance 1e-4 of max |plain|: f32 sums in another order, and on
+    the tensor cores bf16 hi + lo operand splits.  S * group <= 16 takes
+    the split-KV kernel (96 positions: 3 splits), more rows the
+    tensor-core one (q_start > 0 on the full and ragged rows at S 17 and
+    33; hd 12 padded to 16, hd 256 in two column blocks).  hd 12 is no
+    multiple of 16 bytes for int8 and bf16 rows, so those pages take the
+    kernels' scalar loads; f32 rows of 12 take 16-byte loads, three to a
+    row."""
     args = _case(0, dtype=dtype, group=group, s=s, hd=hd)
     before = PA.paged_flash_mq.launches
+    tc_before = PA.paged_flash_mq.tc_launches
     out = PA.paged_multiquery_attention(*args)
     assert PA.paged_flash_mq.launches == before + 1
+    assert PA.paged_flash_mq.tc_launches == tc_before + (s * group > 16)
     want = PA.paged_attention_mq_ref(*args)
     torch.cuda.synchronize()
     tol = 1e-4 * max(float(want.abs().max()), 1.0)
@@ -107,15 +112,42 @@ def test_kernel_matches_plain_long_context(cuda, dtype, group, s):
 @pytest.mark.parametrize("s", [1, 4])
 def test_split_kernel_is_repeatable(cuda, s):
     """Two calls in a row give bitwise-equal output: the splits merge in
-    a fixed order, and each launch leaves its counters at 0 for the
-    next."""
+    a fixed order, and each launch zeroes its own counters (no counter
+    buffer outlives a call)."""
     args = _case(4, dtype=torch.int8, group=1, s=s, per=12,
                  lens=[0, 192, 100, 17])
     first = PA.paged_flash_mq(*args)
     second = PA.paged_flash_mq(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
-    assert int(PA._counters(first.device).abs().sum()) == 0
+    assert not hasattr(PA, "_COUNTER_BUFS")
+
+
+@pytest.mark.gpu
+def test_split_kernel_on_two_streams_at_once(cuda):
+    """Split launches on two streams of one card at once, over the same
+    (b, kv head) pairs with different inputs, many times: each result
+    equals its plain version and, bitwise, the same call run alone (each
+    call's counters are its own, zeroed on its stream)."""
+    cases = [_case(10 + i, dtype=torch.int8, group=1, s=s, per=12,
+                   lens=[0, 192, 100, 17]) for i, s in enumerate((1, 4))]
+    solo = [PA.paged_flash_mq(*a) for a in cases]
+    for a, o in zip(cases, solo):
+        want = PA.paged_attention_mq_ref(*a)
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(float(want.abs().max()), 1.0)
+        assert float((o - want).abs().max()) <= tol
+    streams = [torch.cuda.Stream() for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[] for _ in cases]
+    for _ in range(64):
+        for st, a, o in zip(streams, cases, outs):
+            with torch.cuda.stream(st):
+                o.append(PA.paged_flash_mq(*a))
+    torch.cuda.synchronize()
+    for ref, o in zip(solo, outs):
+        assert all(torch.equal(x, ref) for x in o)
 
 
 @pytest.mark.gpu
@@ -151,9 +183,58 @@ def test_split_kernel_matches_tiled_kernel(cuda, s, group):
 
 @pytest.mark.gpu
 def test_split_kernel_replays_in_a_cuda_graph(cuda):
-    """Captured in a CUDA graph (workspace from the graph's pool, the
-    counters allocated before), each replay equals the eager call."""
+    """Captured in a CUDA graph (workspace and counters from the graph's
+    pool, the counters' zeroing captured with the launch), each replay
+    equals the eager call."""
     args = _case(7, dtype=torch.int8, group=1, s=1, per=12,
+                 lens=[0, 192, 100, 17])
+    eager = PA.paged_flash_mq(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = PA.paged_flash_mq(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("s,group", [(17, 1), (128, 1), (33, 4), (128, 4)])
+def test_tc_kernel_matches_tiled_kernel(cuda, s, group, dtype):
+    """The tensor-core kernel (through ``paged_flash_mq``, one launch)
+    against the first port's tiled kernel on the same inputs: within
+    1e-4 of max |tiled|; the length-0 row is 0 in both."""
+    args = _case(8, dtype=dtype, group=group, s=s, per=12,
+                 lens=[0, 192, 100, 17])
+    before = PA.paged_flash_mq.tc_launches
+    tc = PA.paged_flash_mq(*args)
+    assert PA.paged_flash_mq.tc_launches == before + 1
+    tiled = PA.paged_flash_mq_tiled(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(float(tiled.abs().max()), 1.0)
+    assert float((tc - tiled).abs().max()) <= tol
+    assert (tc[0] == 0).all() and (tiled[0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_tc_kernel_is_repeatable(cuda, dtype):
+    """Two calls of the tensor-core kernel give bitwise-equal output."""
+    args = _case(9, dtype=dtype, group=4, s=128, per=12,
+                 lens=[0, 192, 100, 17])
+    first = PA.paged_flash_mq(*args)
+    second = PA.paged_flash_mq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_tc_kernel_replays_in_a_cuda_graph(cuda):
+    """The tensor-core kernel captured in a CUDA graph: each replay
+    equals the eager call."""
+    args = _case(11, dtype=torch.bfloat16, group=1, s=128, per=12,
                  lens=[0, 192, 100, 17])
     eager = PA.paged_flash_mq(*args)
     graph = torch.cuda.CUDAGraph()
@@ -171,8 +252,9 @@ def test_split_kernel_replays_in_a_cuda_graph(cuda):
 @pytest.mark.parametrize("tp", [2, 4])
 def test_sharded_kernel_matches_plain(cuda, tp, group, s):
     """The sharded form splits heads over ``tp`` shards of the card and
-    launches once per shard: tolerance 1e-4 of max |plain| as for the
-    kernel itself; the length-0 row is 0."""
+    launches once per shard (S 128: the tensor-core kernel per shard):
+    tolerance 1e-4 of max |plain| as for the kernel itself; the length-0
+    row is 0."""
     q, kp, vp, bt, lens, q0, ks, vs = _case(1, dtype=torch.int8,
                                             group=group, s=s)
     calls = PA.paged_flash_mq_sharded.calls
