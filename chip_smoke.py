@@ -7,7 +7,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. ``device``     — the card's name and power limit.
 2. ``build``      — compile every hand-written CUDA kernel from
                     ``src/repro_torch/kernels/csrc``, one ``nvcc`` per
-                    source, all started together.
+                    source, all started together; each kernel's
+                    registers and spills (``-Xptxas -v``), and opcode
+                    counts of the split-K INT8 kernel's SASS.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
                     gives it (decode, prefill, speculative verify) and at
@@ -15,8 +17,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     ``paged_flash_mq_sharded`` at the same int8 shapes
                     split over 2 and 4 shards of the one card (per-shard
                     and summed times, the per-shard bound), the fused
-                    ``int8_matmul`` at deepseek-7b's edge GEMM shapes;
-                    error, kernel / plain times and the roofline bound.
+                    ``int8_matmul`` at deepseek-7b's edge GEMM shapes
+                    (its split-K cluster kernel at M <= 32, checked bit
+                    for bit against the tiled kernel and timed beside
+                    it, ``prev_ms``; ``torch._int_mm`` with B N- and
+                    K-major as yardsticks); error, kernel / plain times
+                    and the roofline bound.  Then ``int8_threshold``:
+                    split-K against tiled at M = 1 .. 32, and the
+                    split-K kernel over cluster sizes.
                     ``paged_flash_mq`` runs its split-KV kernel at decode
                     and verify (with the split count) and its tensor-core
                     kernel at prefill; at every shape the first port's
@@ -180,9 +188,68 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", sources=sources, seconds=secs, ptxas=ptxas)
+    emit("build", sources=sources, seconds=secs,
+         ptxas=[f"{name}: {use}" for log in logs.values()
+                for name, use in _ptxas_report(log)],
+         splitk_sass=_sass_counts(_build._lib_path("int8_matmul"),
+                                  "int8_matmul_splitk_kernelILi0ELi0ELi1E"))
+
+
+def _ptxas_report(log: str) -> list:
+    """(kernel, "N registers, S spill bytes") per entry function of an
+    ``nvcc -Xptxas -v`` log, the kernel named by its template arguments."""
+    import re
+    rows, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill stores" in ln:
+            spill = ln.strip().split(", ", 1)[-1]
+        elif "Used" in ln and "registers" in ln and name:
+            rows.append((name, ln.split("Used", 1)[1].strip() + "; "
+                         + spill))
+            name = None
+    return rows
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<i, j, ..>`` of a mangled kernel: the length-prefixed
+    identifier ending in ``_kernel`` and its integer template arguments."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if ident.endswith("_kernel") and ident.isidentifier():
+            args = re.findall(r"Li(\d+)E", mangled[m.end() + len(ident):])
+            return ident + "<" + ",".join(args) + ">"
+    return mangled
+
+
+def _sass_counts(lib, function: str) -> dict:
+    """Opcode counts in the SASS of the one kernel whose mangled name
+    holds ``function`` (``cuobjdump -sass`` of the built library; static
+    counts over the whole kernel), or a reason where none is possible."""
+    import re
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
+        / "cuobjdump"
+    if not tool.exists():
+        return {"error": f"{tool} not found"}
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout
+    body = None
+    for part in out.split("Function : ")[1:]:
+        if function in part.split("\n", 1)[0]:
+            body = part
+    if body is None:
+        return {"error": f"{function} not in the SASS"}
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     body)
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    keep = ("PRMT", "IMMA", "IDP", "LDS", "LDGSTS", "LDSM", "BAR", "UCGABAR_ARV",
+            "UCGABAR_WAIT", "LD", "STG")
+    return dict(total=len(ops), **{k: counts.get(k, 0) for k in keep})
 
 
 # ---------------------------------------------------------------------------
@@ -561,13 +628,36 @@ def _int8_case(name, m, k, n, *, seed, act=None, bias=False,
                       if bias else None))
 
 
+def _int_mm_layouts(a, bs, m):
+    """``torch._int_mm`` (cuBLASLt s8 x s8 -> s32, no epilogue) as a
+    yardstick, timed with B as the kernels take it (N-major, "NN") and
+    K-major ("TN", ``b.t().contiguous().t()``, the layout cuBLASLt's int8
+    kernels want).  It needs more than 16 rows: smaller M is padded to 32.
+    Returns (A as timed, {layout: ms}); the TN copies are made before
+    either timing."""
+    k = a.shape[1]
+    a_mm = a if m > 16 else torch.cat(
+        [a, torch.zeros((32 - m, k), dtype=torch.int8, device="cuda")])
+    tn = [b.t().contiguous().t() for b in bs]
+    it = iter(range(10 ** 9))
+    res = {}
+    for tag, b_list in (("nn", bs), ("tn", tn)):
+        res[tag] = graph_ms(lambda: torch._int_mm(
+            a_mm, b_list[next(it) % len(b_list)]))
+    del tn
+    return a_mm, res
+
+
 def phase_int8_kernels() -> list:
     """``int8_matmul`` against its plain version at deepseek-7b's edge
-    GEMM shapes: M = 4 (one decode step of 4 slots) and M = 512 (one
-    prefill of 4 x 128), (K, N) the attention projections, gate/up and
-    down; then one case each for bias + silu, gelu, requant to int8 after
-    relu and after bias + gelu, and the identity epilogue, which must be
-    exact."""
+    GEMM shapes: M = 4 (one decode step of 4 slots), M = 1 and 16 (one
+    slot; a 4 x 4 draft) and M = 512 (one prefill of 4 x 128), (K, N) the
+    attention projections, gate/up and down; then one case each for bias
+    + silu, gelu, requant to int8 after relu and after bias + gelu, and
+    the identity epilogue, which must be exact.  At M <= 32 the front
+    door runs the split-K kernel: each such row also runs the tiled
+    kernel (the first design) on the same arguments, which must agree bit
+    for bit, and times it beside it (``prev_ms``), with the plan."""
     from repro_torch.core.quant import compute_qparams
     from repro_torch.kernels import int8_matmul as IK
     from repro_torch.kernels import ops, ref
@@ -576,6 +666,8 @@ def phase_int8_kernels() -> list:
                  (m, kn) for m in (4, 512)
                  for kn in ((4096, 4096), (4096, 11008), (11008, 4096)))]
     cases += [
+        _int8_case("int8mm_m1_4096x11008", 1, 4096, 11008, seed=25),
+        _int8_case("int8mm_m16_4096x11008", 16, 4096, 11008, seed=26),
         _int8_case("int8mm_m512_4096x11008_bias_silu", 512, 4096, 11008,
                    seed=20, act="silu", bias=True),
         _int8_case("int8mm_m4_4096x11008_gelu", 4, 4096, 11008, seed=21,
@@ -587,6 +679,8 @@ def phase_int8_kernels() -> list:
         _int8_case("int8mm_m512_1024x4096_identity", 512, 1024, 4096,
                    seed=23, identity=True),
     ]
+    max_clusters = IK._build.load(
+        "int8_matmul").int8_matmul_splitk_max_clusters
     results = []
     for c in cases:
         a, b0, qa, qb = c["a"], c["bs"][0], c["qa"], c["qb"]
@@ -596,12 +690,16 @@ def phase_int8_kernels() -> list:
         if c["requant"]:
             kw["out_qp"] = compute_qparams(ref.int8_matmul_ref(a, b0, qa, qb,
                                                                **kw))
-        launches0 = IK.int8_matmul_cuda.launches
+        plan = IK._plan_splitk(m, k, n) if m <= IK._SPLITK_MAX_M else None
+        launches0 = (IK.int8_matmul_cuda.launches,
+                     IK.int8_matmul_cuda.splitk_launches)
         out = ops.int8_matmul(a, b0, qa, qb, **kw)
         torch.cuda.synchronize()
-        if IK.int8_matmul_cuda.launches != launches0 + 1:
+        if (IK.int8_matmul_cuda.launches, IK.int8_matmul_cuda.splitk_launches
+                ) != (launches0[0] + 1, launches0[1] + (plan is not None)):
             raise AssertionError(f"{c['name']}: the front door did not "
-                                 f"launch the kernel exactly once")
+                                 f"launch the {'split-K' if plan else 'tiled'}"
+                                 f" kernel exactly once")
         plain = ref.int8_matmul_ref(a, b0, qa, qb, **kw)
         if out.dtype != plain.dtype or out.shape != plain.shape:
             raise AssertionError(f"{c['name']}: {out.dtype} {out.shape} vs "
@@ -629,25 +727,38 @@ def phase_int8_kernels() -> list:
         def run_plain():
             ref.int8_matmul_ref(a, c["bs"][next(it) % nb], qa, qb, **kw)
 
-        # torch._int_mm (cuBLASLt s8 x s8 -> s32, no epilogue) as a
-        # yardstick: it needs more than 16 rows, so M = 4 is padded to 32
-        a_mm = a if m > 16 else torch.cat(
-            [a, torch.zeros((32 - m, k), dtype=torch.int8, device="cuda")])
+        args, kargs = ops.kernel_args(a, b0, qa, qb, **kw)
 
-        def run_int_mm():
-            return torch._int_mm(a_mm, c["bs"][next(it) % nb])
+        def run_prev():
+            IK.int8_matmul_tiled(a, c["bs"][next(it) % nb], *args[2:],
+                                 **kargs)
 
+        prev = {}
+        if plan is not None:
+            # the tiled kernel on the front door's own arguments: bit for
+            # bit, since both run one epilogue on exact int32 sums
+            if not torch.equal(IK.int8_matmul_tiled(*args, **kargs), out):
+                raise AssertionError(f"{c['name']}: split-K and tiled "
+                                     f"kernels differ")
+            prev = dict(kernel_design="splitk", bitwise_equal_prev=True,
+                        cluster=plan[0], slice_k=plan[1], smem_bytes=plan[2],
+                        max_active_clusters=max_clusters(m, n, *plan[:2]))
+        a_mm, int_mm = _int_mm_layouts(a, c["bs"], m)
         if c["identity"]:
-            acc = run_int_mm()[:m].float()
-            if not torch.equal(out, acc):
+            if not torch.equal(out, torch._int_mm(a_mm, b0)[:m].float()):
                 raise AssertionError(f"{c['name']}: identity epilogue "
                                      f"differs from torch._int_mm")
+        # plain, tiled, kernel, kernel, tiled, plain: the versions in turns
         plain_ms = graph_ms(run_plain, iters=5)
+        if plan is not None:
+            prev["prev_ms"] = graph_ms(run_prev)
         kernel_ms = graph_ms(run_kernel)
         kernel_call_ms = cuda_ms(run_kernel)
         kernel_ms = min(kernel_ms, graph_ms(run_kernel))
+        if plan is not None:
+            prev["prev_ms"] = min(prev["prev_ms"], graph_ms(run_prev))
+            prev["prev_call_ms"] = cuda_ms(run_prev)
         plain_ms = min(plain_ms, graph_ms(run_plain, iters=5))
-        int_mm_ms = graph_ms(run_int_mm)
         nbytes = (m * k + k * n + m * n * out.element_size()
                   + 4 * n * (3 if c["bias"] is not None else 2))
         ops_n = 2 * m * k * n
@@ -660,13 +771,69 @@ def phase_int8_kernels() -> list:
                  plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bytes=nbytes, ops=ops_n, library_ms=None,
-                 int_mm_ms=int_mm_ms,
-                 int_mm_rows=a_mm.shape[0], b_copies=nb)
+                 int_mm_ms=int_mm["nn"], int_mm_tn_ms=int_mm["tn"],
+                 int_mm_rows=a_mm.shape[0], b_copies=nb,
+                 **({"kernel_design": "tiled"} if plan is None else prev))
         emit("kernels", **r)
         results.append(r)
         del c["bs"]
     torch.cuda.empty_cache()
     return results
+
+
+def phase_int8_threshold() -> list:
+    """The split-K kernel's rows threshold and cluster size, measured: at
+    deepseek-7b's three edge GEMM shapes, the split-K kernel
+    (``int8_matmul_splitk``, its own plan) and the tiled kernel in turns
+    at M = 1, 4, 8, 16 and 32, then the split-K kernel at M = 4 and 16
+    over cluster sizes 1, 2, 3, 4, 6 and 8 (``cluster_ms``; f32 out,
+    per-channel scales, no bias; CUDA-graph replayed, B streamed from
+    device memory).  First the launch floor of both kernels: M 4, K 128,
+    N 64 (``int8_floor``)."""
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import ops
+    rows = []
+    # the launch floor: one CTA of one stage, one 64-column tile
+    c = _int8_case("floor", 4, 128, 64, seed=29)
+    args, kargs = ops.kernel_args(c["a"], c["bs"][0], c["qa"], c["qb"])
+    floor = dict(m=4, k=128, n=64, splitk_ms=graph_ms(
+        lambda: IK.int8_matmul_splitk(*args, **kargs)), tiled_ms=graph_ms(
+        lambda: IK.int8_matmul_tiled(*args, **kargs)))
+    emit("int8_floor", **floor)
+    for i, (k, n) in enumerate(((4096, 4096), (4096, 11008), (11008, 4096))):
+        c = _int8_case(f"{k}x{n}", 32, k, n, seed=30 + i)
+        nb = len(c["bs"])
+        it = iter(range(10 ** 9))
+        args, kargs = ops.kernel_args(c["a"], c["bs"][0], c["qa"], c["qb"])
+        per_m = {}
+        for m in (1, 4, 8, 16, 32):
+            a = c["a"][:m].contiguous()
+
+            def splitk(cluster=None, a=a):
+                IK.int8_matmul_splitk(a, c["bs"][next(it) % nb], *args[2:],
+                                      cluster=cluster, **kargs)
+
+            def tiled(a=a):
+                IK.int8_matmul_tiled(a, c["bs"][next(it) % nb], *args[2:],
+                                     **kargs)
+
+            t_ms = graph_ms(tiled)
+            s_ms = min(graph_ms(splitk), graph_ms(splitk))
+            t_ms = min(t_ms, graph_ms(tiled))
+            per_m[m] = dict(splitk_ms=s_ms, tiled_ms=t_ms,
+                            plan=list(IK._plan_splitk(m, k, n)))
+            if m in (4, 16):
+                per_m[m]["cluster_ms"] = {
+                    cl: graph_ms(lambda cl=cl: splitk(cl))
+                    for cl in (1, 2, 3, 4, 6, 8)}
+        row = dict(k=k, n=n, per_m=per_m,
+                   splitk_faster_at=[m for m, v in per_m.items()
+                                     if v["splitk_ms"] < v["tiled_ms"]])
+        emit("int8_threshold", **row)
+        rows.append(row)
+        del c
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -827,6 +994,7 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
     PA.paged_flash_mq_sharded.calls = 0
     PA.paged_flash_mq_sharded.launches = 0
     IK.int8_matmul_cuda.launches = 0
+    IK.int8_matmul_cuda.splitk_launches = 0
     t0 = time.perf_counter()
     outs = e.generate(prompts, max_new_tokens=max_new)
     torch.cuda.synchronize()
@@ -849,7 +1017,10 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
                 tc_launches=tc_launches,
                 sharded_calls=PA.paged_flash_mq_sharded.calls,
                 sharded_launches=PA.paged_flash_mq_sharded.launches,
-                int8_matmul_launches=IK.int8_matmul_cuda.launches, stats=st)
+                int8_matmul_launches=IK.int8_matmul_cuda.launches,
+                int8_matmul_splitk_launches=(
+                    IK.int8_matmul_cuda.splitk_launches),
+                stats=st)
 
 
 def phase_main_path(params, cfg) -> dict:
@@ -916,6 +1087,8 @@ def phase_main_path(params, cfg) -> dict:
                expected_launches=cfg.n_layers * (st.prefill_calls
                                                  + st.decode_steps),
                int8_matmul_launches=first["int8_matmul_launches"],
+               int8_matmul_splitk_launches=first[
+                   "int8_matmul_splitk_launches"],
                transmitted_bytes=st.transmitted_bytes,
                prefill_bytes=st.prefill_bytes,
                bytes_per_decode_token=st.bytes_per_decode_token(),
@@ -1016,6 +1189,8 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
                launches=first["launches"],
                tc_launches=first["tc_launches"],
                int8_matmul_launches=first["int8_matmul_launches"],
+               int8_matmul_splitk_launches=first[
+                   "int8_matmul_splitk_launches"],
                transmitted_bytes=st.transmitted_bytes,
                prefill_bytes=st.prefill_bytes,
                bytes_per_decode_token=st.bytes_per_decode_token(),
@@ -1214,6 +1389,8 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
                    sharded_calls=first["sharded_calls"],
                    sharded_launches=first["sharded_launches"],
                    int8_matmul_launches=first["int8_matmul_launches"],
+                   int8_matmul_splitk_launches=first[
+                       "int8_matmul_splitk_launches"],
                    transmitted_bytes=st.transmitted_bytes,
                    tp1_transmitted_bytes=(main_res if k == 1
                                           else spec_res)["transmitted_bytes"],
@@ -1449,6 +1626,7 @@ def main(argv=None) -> int:
     kres = phase_kernels()
     sres = phase_sharded_kernels()
     ires = phase_int8_kernels()
+    phase_int8_threshold()
     if args.only == "kernels":
         return 0
     # one seeded set of deepseek-7b weights for phases 4-6
@@ -1469,13 +1647,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_path_parity()
     # each summary row is the kernel's main-path shape: the decode step
-    # of 4 slots (int8_matmul: gate/up at M = 4; the serving path does
-    # not call it, so its main-path count is 0 — read, not assumed)
+    # of 4 slots (int8_matmul_splitk: gate/up at M = 4; int8_matmul, the
+    # front door with the tiled kernel above 32 rows: gate/up at a 4 x
+    # 128 prefill; the serving path calls neither, so their main-path
+    # counts are 0 — read, not assumed)
     dec = next(r for r in kres if r["shape"] == "deepseek7b_decode_int8")
     pre = next(r for r in kres if r["shape"] == "deepseek7b_prefill_int8")
     sdec = next(r for r in sres
                 if r["shape"] == "deepseek7b_decode_int8_tp2")
-    mm = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
+    mm = next(r for r in ires if r["shape"] == "int8mm_m512_4096x11008")
+    sk = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
     print(json.dumps({"kernels": [{
         "name": "paged_flash_mq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1524,7 +1705,25 @@ def main(argv=None) -> int:
         "ms": mm["kernel_ms"], "plain_ms": mm["plain_ms"],
         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
         "library_ms": None, "int_mm_ms": mm["int_mm_ms"],
-        "shape": mm["shape"]}]}), flush=True)
+        "int_mm_tn_ms": mm["int_mm_tn_ms"], "kernel_design": "tiled",
+        "shape": mm["shape"]}, {
+        # B4 at M <= 32: the split-K cluster kernel, launched through
+        # int8_matmul; its launches are counted apart too.  prev_ms: the
+        # tiled kernel, same arguments, same run
+        "name": "int8_matmul_splitk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:139",
+        "launches": main_res["int8_matmul_splitk_launches"],
+        "spec_path_launches": spec_res["int8_matmul_splitk_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ires
+                           if r["out_dtype"] == "torch.float32"
+                           and r["kernel_design"] == "splitk"),
+        "ms": sk["kernel_ms"], "plain_ms": sk["plain_ms"],
+        "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
+        "library_ms": None, "prev_ms": sk["prev_ms"],
+        "int_mm_ms": sk["int_mm_ms"], "int_mm_tn_ms": sk["int_mm_tn_ms"],
+        "cluster": sk["cluster"], "slice_k": sk["slice_k"],
+        "shape": sk["shape"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@ Counterpart of ``repro.kernels.ops`` (``int8_matmul`` and
 ``quantized_dense``, with the reference's signatures less ``block`` and
 ``interpret``).  Each dispatches on the tensor's device alone: a CPU
 tensor takes the plain version (``kernels.ref``), a CUDA tensor launches
-the hand-written kernel (``kernels.int8_matmul``) or raises — nothing
-falls back.  The kernel takes any shape, so unlike the reference nothing
-is padded here; a per-tensor ``qb`` is broadcast to per-channel [N].
+the hand-written kernels (``kernels.int8_matmul``, which picks the
+design by shape) or raises — nothing falls back.  The kernels take any
+shape, so unlike the reference nothing is padded here; a per-tensor
+``qb`` is broadcast to per-channel [N].
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.core.quant import QuantParams, quantize
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.ref import int8_matmul_ref
 
-__all__ = ["int8_matmul", "quantized_dense"]
+__all__ = ["int8_matmul", "kernel_args", "quantized_dense"]
 
 
 def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
@@ -30,6 +31,19 @@ def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
     if not a_q.is_cuda:
         return int8_matmul_ref(a_q, b_q, qa, qb, bias=bias, act=act,
                                out_qp=out_qp)
+    args, kw = kernel_args(a_q, b_q, qa, qb, bias=bias, act=act,
+                           out_qp=out_qp)
+    return int8_matmul_cuda(*args, **kw)
+
+
+def kernel_args(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
+                qb: QuantParams, *, bias: Optional[torch.Tensor] = None,
+                act: Optional[str] = None,
+                out_qp: Optional[QuantParams] = None) -> tuple:
+    """(args, kwargs) of the kernel launchers in ``kernels.int8_matmul``
+    for ``int8_matmul``'s arguments on CUDA tensors: f32 scalars, the
+    weight's scale and zero point per channel [N], the output type and
+    lattice."""
     dev = a_q.device
     n = b_q.shape[-1]
 
@@ -45,11 +59,11 @@ def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
     if out_qp is not None:
         so, zo = f32(out_qp.scale), f32(out_qp.zero_point)
         out_dtype, qmin, qmax = out_qp.storage_dtype, out_qp.qmin, out_qp.qmax
-    return int8_matmul_cuda(
-        a_q.contiguous(), b_q.contiguous(), f32(qa.scale),
-        f32(qa.zero_point), per_channel(qb.scale), per_channel(qb.zero_point),
-        None if bias is None else f32(bias).contiguous(), so, zo, act=act,
-        out_dtype=out_dtype, qmin=qmin, qmax=qmax)
+    return ((a_q.contiguous(), b_q.contiguous(), f32(qa.scale),
+             f32(qa.zero_point), per_channel(qb.scale),
+             per_channel(qb.zero_point),
+             None if bias is None else f32(bias).contiguous(), so, zo),
+            dict(act=act, out_dtype=out_dtype, qmin=qmin, qmax=qmax))
 
 
 def quantized_dense(x: torch.Tensor, w_q: torch.Tensor, qx: QuantParams,

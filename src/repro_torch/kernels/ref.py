@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant import QuantParams, quantize
 
-__all__ = ["int8_matmul_ref", "quantized_dense_ref"]
+__all__ = ["int8_epilogue_ref", "int8_matmul_ref", "quantized_dense_ref"]
 
 # jax.nn.gelu defaults to the tanh approximation; torch's default is erf
 _ACTS = {
@@ -55,10 +55,23 @@ def int8_matmul_ref(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
     if k != k2:
         raise ValueError(f"inner dims differ: {tuple(a_q.shape)} @ "
                          f"{tuple(b_q.shape)}")
-    dev = a_q.device
     acc = _int_matmul(a_q, b_q)                                # [M, N]
     rowsum_a = torch.sum(a_q, dim=1, keepdim=True, dtype=torch.int32)
     colsum_b = torch.sum(b_q, dim=0, keepdim=True, dtype=torch.int32)
+    return int8_epilogue_ref(acc, rowsum_a, colsum_b, k, qa, qb, bias=bias,
+                             act=act, out_qp=out_qp)
+
+
+def int8_epilogue_ref(acc: torch.Tensor, rowsum_a: torch.Tensor,
+                      colsum_b: torch.Tensor, k: int, qa: QuantParams,
+                      qb: QuantParams, *,
+                      bias: Optional[torch.Tensor] = None,
+                      act: Optional[str] = None,
+                      out_qp: Optional[QuantParams] = None) -> torch.Tensor:
+    """Steps 2-4 of ``int8_matmul_ref`` on the exact int32 sums: ``acc``
+    [M, N] = A_q·B_q, ``rowsum_a`` [M, 1], ``colsum_b`` [1, N], over a
+    depth of ``k``."""
+    dev = acc.device
 
     def f32(t, shape):
         return torch.as_tensor(t, dtype=torch.float32,

@@ -359,6 +359,197 @@ def test_int8_kernel_identity_epilogue_is_exact(cuda):
     assert torch.equal(got, REF.int8_matmul_ref(a, b, one, one))
 
 
+def _sk_operands(m, k, n, seed, per_channel=True):
+    """Random int8 operands and f32 epilogue tensors in the kernels' own
+    layout: za, zb non-zero, so every correction term is exercised."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randint(-128, 128, (m, k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    if per_channel:
+        sb = torch.rand((n,), generator=g, device="cuda") * 1e-3 + 1e-4
+        zb = torch.randint(-6, 7, (n,), generator=g, device="cuda").float()
+    else:
+        sb = torch.full((n,), 5e-4, device="cuda")
+        zb = torch.full((n,), 2.0, device="cuda")
+    sa = torch.tensor([0.02], device="cuda")
+    za = torch.tensor([3.0], device="cuda")
+    bias = torch.randn((n,), generator=g, device="cuda")
+    qa = QuantParams(scale=sa[0], zero_point=za[0])
+    qb = QuantParams(scale=sb, zero_point=zb, axis=1)
+    return a, b, sa, za, sb, zb, bias, qa, qb
+
+
+def _requant(plain_f32, out_dtype):
+    """(so, zo, qmin, qmax, out_qp) of a requant to ``out_dtype``."""
+    bits, signed = {torch.int8: (8, True), torch.uint8: (8, False),
+                    torch.int16: (16, True)}[out_dtype]
+    qp = compute_qparams(plain_f32, bits=bits, signed=signed)
+    return (qp.scale.reshape(1).float(), qp.zero_point.reshape(1).float(),
+            qp.qmin, qp.qmax, qp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 4, 16, 32])
+@pytest.mark.parametrize("k", [300, 4096, 11008])
+@pytest.mark.parametrize("n", [96, 4100, 11008])
+def test_splitk_kernel_matches_plain_and_tiled(cuda, m, k, n):
+    """The front door at M <= 32 launches the split-K kernel (its cluster
+    merge, ring and byte-load paths: K 300 and N 4100 are not multiples
+    of 16), which equals the plain version to rtol 1e-5, atol 1e-4 and the
+    tiled kernel bit for bit: both run one epilogue on exact sums."""
+    a, b, sa, za, sb, zb, bias, qa, qb = _sk_operands(m, k, n, m * k + n)
+    before = (IK.int8_matmul_cuda.launches,
+              IK.int8_matmul_cuda.splitk_launches)
+    got = IK.int8_matmul_cuda(a, b, sa, za, sb, zb, bias)
+    assert (IK.int8_matmul_cuda.launches,
+            IK.int8_matmul_cuda.splitk_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias)
+    want = REF.int8_matmul_ref(a, b, qa, qb, bias=bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, tiled)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.int8,
+                                       torch.uint8, torch.int16])
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_splitk_kernel_epilogues(cuda, act, out_dtype, per_channel):
+    """Every activation and requant type, per-tensor and per-channel
+    weight scales, with bias: bitwise equal to the tiled kernel; f32
+    within 1e-4 of the plain version, integer outputs within one lattice
+    step in under 1 % of elements (the plain version rounds its f32
+    epilogue in other places)."""
+    m, k, n = 4, 4096, 4100
+    a, b, sa, za, sb, zb, bias, qa, qb = _sk_operands(
+        m, k, n, 11 + per_channel, per_channel)
+    kw = dict(act=act, out_dtype=out_dtype)
+    ref_kw = dict(bias=bias, act=act)
+    if out_dtype != torch.float32:
+        so, zo, qmin, qmax, qp = _requant(
+            REF.int8_matmul_ref(a, b, qa, qb, **ref_kw), out_dtype)
+        kw.update(so=so, zo=zo, qmin=qmin, qmax=qmax)
+        ref_kw["out_qp"] = qp
+    got = IK.int8_matmul_splitk(a, b, sa, za, sb, zb, bias, **kw)
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias, **kw)
+    want = REF.int8_matmul_ref(a, b, qa, qb, **ref_kw)
+    torch.cuda.synchronize()
+    assert got.dtype == tiled.dtype == want.dtype == out_dtype
+    assert torch.equal(got, tiled)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        diff = (got.int() - want.int()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) < 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16, 32])
+def test_splitk_identity_epilogue_is_the_int32_product(cuda, m):
+    g = torch.Generator(device="cuda").manual_seed(m)
+    a = torch.randint(-128, 128, (m, 4096), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (4096, 4100), generator=g, device="cuda",
+                      dtype=torch.int8)
+    one = torch.ones(1, device="cuda")
+    zero = torch.zeros(1, device="cuda")
+    got = IK.int8_matmul_splitk(a, b, one, zero, one.expand(4100).contiguous(),
+                                zero.expand(4100).contiguous())
+    want = (a.double() @ b.double()).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 16, 100, 127])
+@pytest.mark.parametrize("n", [96, 4100])
+def test_splitk_kernel_with_k_below_one_stage(cuda, k, n):
+    """K shorter than one 128-deep stage: one CTA a cluster, one
+    partial stage, zero-filled past K."""
+    a, b, sa, za, sb, zb, bias, qa, qb = _sk_operands(4, k, n, k + n)
+    assert IK._plan_splitk(4, k, n)[:2] == (1, 128)
+    got = IK.int8_matmul_cuda(a, b, sa, za, sb, zb, bias, act="silu")
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias, act="silu")
+    want = REF.int8_matmul_ref(a, b, qa, qb, bias=bias, act="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, tiled)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 7, 8])
+@pytest.mark.parametrize("m", [4, 17, 32])
+def test_splitk_kernel_at_any_cluster_size(cuda, cluster, m):
+    """Every cluster size the plan may take, and M past one 16-row
+    fragment: the merge is exact, so the output never moves."""
+    a, b, sa, za, sb, zb, bias, _, _ = _sk_operands(m, 4096, 4100, cluster)
+    assert IK._plan_splitk(m, 4096, 4100, cluster)[0] == cluster
+    got = IK.int8_matmul_splitk(a, b, sa, za, sb, zb, bias, act="gelu",
+                                cluster=cluster)
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, tiled)
+
+
+@pytest.mark.gpu
+def test_splitk_shared_memory_matches_the_plan(cuda):
+    """The CUDA source's shared-memory layout and the Python mirror that
+    the plan sizes launches by."""
+    fn = IK._build.load("int8_matmul").int8_matmul_splitk_smem_bytes
+    for m in (1, 4, 16, 17, 32):
+        for slice_k in (128, 256, 512, 1408, 12160):
+            assert fn(m, slice_k) == IK._splitk_smem_bytes(m, slice_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 16])
+def test_splitk_kernel_replays_in_a_cuda_graph(cuda, m):
+    """Captured with no eager call before (M 16 needs more than 48 KB of
+    shared memory, so the capture also sets the kernel's limit), then
+    replayed: the output equals an eager launch."""
+    a, b, sa, za, sb, zb, bias, _, _ = _sk_operands(m, 4096, 11008, 40 + m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = IK.int8_matmul_cuda(a, b, sa, za, sb, zb, bias, act="relu")
+    for _ in range(2):
+        graph.replay()
+    eager = IK.int8_matmul_cuda(a, b, sa, za, sb, zb, bias, act="relu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+def test_splitk_kernel_on_two_streams_at_once(cuda):
+    """Launches on two streams share nothing (no workspace, no counter):
+    each output equals the same call made alone."""
+    cases = [_sk_operands(m, k, n, 50 + m)
+             for m, k, n in ((4, 11008, 4096), (16, 4096, 11008))]
+    solo = [IK.int8_matmul_cuda(*c[:7]) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = []
+    for _ in range(3):
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        step = []
+        for st, c in zip(streams, cases):
+            with torch.cuda.stream(st):
+                step.append(IK.int8_matmul_cuda(*c[:7]))
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        outs.append(step)
+    torch.cuda.synchronize()
+    for step in outs:
+        assert all(torch.equal(x, y) for x, y in zip(step, solo))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("spec_k", [1, 4])
 def test_tp_engine_on_card_matches_cpu(cuda, spec_k):

@@ -226,3 +226,105 @@ def test_prop_any_shape_matches_reference(m, k, n, per_channel):
     got = TO.int8_matmul(_t(a_q), _t(b_q), _qp(qa), _qp(qw)).numpy()
     want = np.asarray(JR.int8_matmul_ref(a_q, b_q, qa, qw))
     np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The split-K kernel's plan (small M), and a plain model of its merge
+# ---------------------------------------------------------------------------
+
+PLAN_KS = [1, 17, 127, 128, 129, 300, 1000, 4096, 11008, 29568, 50000,
+           1 << 20]
+PLAN_NS = [1, 17, 64, 96, 4100, 11008]
+
+
+def _slices(k, cluster, slice_k):
+    return [(r * slice_k, min((r + 1) * slice_k, k)) for r in range(cluster)]
+
+
+@pytest.mark.parametrize("m", range(1, TK._SPLITK_MAX_M + 1))
+def test_splitk_plan_covers_k_once(m):
+    """Every planned launch: 1-8 CTAs a cluster, slices of whole 128-deep
+    stages, each non-empty, together exactly K, in at most 227 KB of
+    shared memory, at any K (A rides in the ring, so shared memory does
+    not grow with K)."""
+    for k in PLAN_KS:
+        for n in PLAN_NS:
+            cluster, slice_k, smem = TK._plan_splitk(m, k, n)
+            assert 1 <= cluster <= 8 and slice_k % TK._SK_BK == 0
+            sl = _slices(k, cluster, slice_k)
+            assert sl[0][0] == 0 and sl[-1][1] == k
+            assert all(lo < hi for lo, hi in sl), (m, k, n, plan)
+            assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+            assert smem == TK._splitk_smem_bytes(m, slice_k)
+            assert smem <= TK._SK_MAX_SMEM
+
+
+def test_splitk_plan_at_the_edge_shapes():
+    """deepseek-7b's decode GEMMs: about one CTA per SM, K split at least
+    in two, so 2 CTAs a 64-column tile both where N = 4096 leaves 64
+    tiles and where gate/up has 172, 8 where 2 tiles need 66 and K
+    allows it; the front door takes the split-K kernel up to its 32
+    rows, and no plan above them or at K = 0 (the tiled kernel's
+    shapes)."""
+    assert TK._plan_splitk(4, 4096, 4096)[:2] == (2, 2048)
+    assert TK._plan_splitk(4, 11008, 4096)[:2] == (2, 5504)
+    assert TK._plan_splitk(4, 4096, 11008)[:2] == (2, 2048)
+    assert TK._plan_splitk(16, 4096, 11008)[:2] == (2, 2048)
+    assert TK._plan_splitk(4, 4096, 96)[:2] == (8, 512)
+    assert TK._plan_splitk(4, 300, 96)[:2] == (3, 128)
+    assert TK._plan_splitk(4, 4096, 4096, cluster=2)[:2] == (2, 2048)
+    assert TK._plan_splitk(4, 300, 96, cluster=8)[:2] == (3, 128)
+    assert TK._plan_splitk(33, 4096, 4096) is None
+    assert TK._plan_splitk(4, 0, 4096) is None
+    assert TK._SPLITK_MAX_M == 32
+
+
+def _splitk_model(a_q, b_q, qa, qb, **kw):
+    """The split-K kernel's arithmetic in plain torch: int32 partials of
+    the accumulator, rowsum(A) and colsum(B) per planned K slice, summed,
+    then the plain version's epilogue."""
+    m, k = a_q.shape
+    cluster, slice_k = TK._plan_splitk(m, k, b_q.shape[1])[:2]
+    acc = rows = cols = 0
+    for lo, hi in _slices(k, cluster, slice_k):
+        a, b = a_q[:, lo:hi].to(torch.int32), b_q[lo:hi].to(torch.int32)
+        acc = acc + a @ b
+        rows = rows + a.sum(dim=1, keepdim=True, dtype=torch.int32)
+        cols = cols + b.sum(dim=0, keepdim=True, dtype=torch.int32)
+    return TR.int8_epilogue_ref(acc, rows, cols, k, qa, qb, **kw)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 300, 96), (3, 1000, 17), (4, 4096, 40),
+                                   (16, 1, 96), (16, 129, 65), (32, 2000, 8)])
+@pytest.mark.parametrize("act", [None, "gelu"])
+@pytest.mark.parametrize("requant", [None, (8, True), (8, False), (16, True)])
+def test_splitk_model_equals_plain_exactly(m, k, n, act, requant):
+    """Summing int32 partials over the planned slices changes no bit of
+    the output, at any activation and requant type: what lets the card
+    kernel equal the tiled kernel bitwise."""
+    rng = np.random.RandomState(m * 7 + k + n)
+    a_q = torch.tensor(rng.randint(-128, 128, (m, k)).astype(np.int8))
+    b_q = torch.tensor(rng.randint(-128, 128, (k, n)).astype(np.int8))
+    qa = TQ.QuantParams(scale=torch.tensor(0.02), zero_point=torch.tensor(3.0))
+    qb = TQ.QuantParams(
+        scale=torch.tensor(rng.uniform(1e-4, 1.1e-3, n).astype(np.float32)),
+        zero_point=torch.tensor(rng.randint(-6, 7, n).astype(np.float32)),
+        axis=1)
+    kw = dict(act=act, bias=torch.tensor(rng.randn(n).astype(np.float32)))
+    if requant is not None:
+        f32 = TR.int8_matmul_ref(a_q, b_q, qa, qb, **kw)
+        kw["out_qp"] = TQ.compute_qparams(f32, bits=requant[0],
+                                          signed=requant[1])
+    want = TR.int8_matmul_ref(a_q, b_q, qa, qb, **kw)
+    got = _splitk_model(a_q, b_q, qa, qb, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_splitk_launchers_need_cuda_tensors():
+    a_q, b_q, qa, qw = _inputs(4, 16, 8, seed=16)
+    one = torch.ones(())
+    for fn in (TK.int8_matmul_splitk, TK.int8_matmul_tiled):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(_t(a_q), _t(b_q), one, one, torch.ones(8), torch.ones(8))
+    assert TK.int8_matmul_splitk.launches == TK.int8_matmul_tiled.launches \
+        == TK.int8_matmul_cuda.splitk_launches == 0
