@@ -9,7 +9,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     ``src/repro_torch/kernels/csrc``, one ``nvcc`` per
                     source, all started together; each kernel's
                     registers and spills (``-Xptxas -v``), and opcode
-                    counts of the split-K INT8 kernel's SASS.
+                    counts of the split-K and wgmma INT8 kernels' SASS.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
                     gives it (decode, prefill, speculative verify) and at
@@ -18,13 +18,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     split over 2 and 4 shards of the one card (per-shard
                     and summed times, the per-shard bound), the fused
                     ``int8_matmul`` at deepseek-7b's edge GEMM shapes
-                    (its split-K cluster kernel at M <= 32, checked bit
+                    (its split-K cluster kernel at M <= 32 and its wgmma
+                    kernel at M 512 on packed weights, each checked bit
                     for bit against the tiled kernel and timed beside
-                    it, ``prev_ms``; ``torch._int_mm`` with B N- and
+                    it, ``prev_ms``; the front door on an unpacked weight,
+                    pack included; ``torch._int_mm`` with B N- and
                     K-major as yardsticks); error, kernel / plain times
-                    and the roofline bound.  Then ``int8_threshold``:
-                    split-K against tiled at M = 1 .. 32, and the
-                    split-K kernel over cluster sizes.
+                    and the roofline bound; the pack kernel against its
+                    plain version.  Then ``int8_threshold``: split-K
+                    against tiled at M = 1 .. 32, the split-K kernel over
+                    cluster sizes, and wgmma against tiled (and split-K
+                    at 32) at M = 32 .. 512 with the wgmma plans at 512;
+                    ``int8_floor``: each design's launch floor;
+                    ``int8_epilogues``: the wgmma and tiled kernels per
+                    activation and output type.
                     ``paged_flash_mq`` runs its split-KV kernel at decode
                     and verify (with the split count) and its tensor-core
                     kernel at prefill; at every shape the first port's
@@ -32,7 +39,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     and timed beside it (``prev_ms``), and the
                     tensor-core kernel must be the faster of the two.
 4. ``quantized_dense`` — the INT8 GEMM's front door at full width on the
-                    main path's own activations and layer-0 weights,
+                    main path's own activations and layer-0 weights
+                    (packed once: one wgmma launch and no pack a weight),
                     against its plain version and the f32 product.
 5. ``main_path``  — ``CollaborativeServingEngine`` on deepseek-7b at full
                     width and depth (bf16, random seeded weights), INT8
@@ -75,6 +83,7 @@ device is present or the repository's ``src/`` is missing.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -181,18 +190,21 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
-    sources = sorted(p.stem for p in _build._CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        logs = dict(zip(sources, pool.map(_build.build, sources)))
+    logs = _build.build_all()
     secs = time.perf_counter() - t0
-    emit("build", sources=sources, seconds=secs,
+    emit("build", sources=sorted(logs), seconds=secs,
          ptxas=[f"{name}: {use}" for log in logs.values()
                 for name, use in _ptxas_report(log)],
+         ptxas_warnings=[ln.strip() for log in logs.values()
+                         for ln in log.splitlines() if "warning" in ln],
          splitk_sass=_sass_counts(_build._lib_path("int8_matmul"),
-                                  "int8_matmul_splitk_kernelILi0ELi0ELi1E"))
+                                  "int8_matmul_splitk_kernelILi0ELi0ELi1E"),
+         wgmma_sass=_sass_counts(_build._lib_path("int8_matmul_sm90"),
+                                 "int8_matmul_wgmma_kernelILi0ELi0ELi128E"),
+         wgmma_sass_sizes=_sass_sizes(_build._lib_path("int8_matmul_sm90"),
+                                      "int8_matmul_wgmma_kernel"))
 
 
 def _ptxas_report(log: str) -> list:
@@ -225,17 +237,38 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib) -> str:
+    """``cuobjdump -sass`` of a built library, or "" where there is none."""
+    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
+        / "cuobjdump"
+    if not tool.exists():
+        return ""
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def _sass_sizes(lib, kernel: str) -> dict:
+    """Instructions in the SASS of every instance of ``kernel``, by its
+    template arguments."""
+    import re
+    sizes = {}
+    for part in _sass(lib).split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        if kernel in name:
+            sizes[_kernel_name(name)] = len(re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?[A-Z]", part))
+    return sizes
+
+
 def _sass_counts(lib, function: str) -> dict:
     """Opcode counts in the SASS of the one kernel whose mangled name
     holds ``function`` (``cuobjdump -sass`` of the built library; static
     counts over the whole kernel), or a reason where none is possible."""
     import re
-    tool = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" \
-        / "cuobjdump"
-    if not tool.exists():
-        return {"error": f"{tool} not found"}
-    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=300).stdout
+    out = _sass(lib)
+    if not out:
+        return {"error": "cuobjdump not found"}
     body = None
     for part in out.split("Function : ")[1:]:
         if function in part.split("\n", 1)[0]:
@@ -248,7 +281,7 @@ def _sass_counts(lib, function: str) -> dict:
     for op in ops:
         counts[op] = counts.get(op, 0) + 1
     keep = ("PRMT", "IMMA", "IDP", "LDS", "LDGSTS", "LDSM", "BAR", "UCGABAR_ARV",
-            "UCGABAR_WAIT", "LD", "STG")
+            "UCGABAR_WAIT", "LD", "STG", "IGMMA", "UTMALDG", "SYNCS", "WARPGROUP")
     return dict(total=len(ops), **{k: counts.get(k, 0) for k in keep})
 
 
@@ -648,16 +681,22 @@ def _int_mm_layouts(a, bs, m):
     return a_mm, res
 
 
-def phase_int8_kernels() -> list:
+def phase_int8_kernels() -> tuple:
     """``int8_matmul`` against its plain version at deepseek-7b's edge
     GEMM shapes: M = 4 (one decode step of 4 slots), M = 1 and 16 (one
     slot; a 4 x 4 draft) and M = 512 (one prefill of 4 x 128), (K, N) the
     attention projections, gate/up and down; then one case each for bias
     + silu, gelu, requant to int8 after relu and after bias + gelu, and
     the identity epilogue, which must be exact.  At M <= 32 the front
-    door runs the split-K kernel: each such row also runs the tiled
-    kernel (the first design) on the same arguments, which must agree bit
-    for bit, and times it beside it (``prev_ms``), with the plan."""
+    door runs the split-K kernel on the [K, N] weight, at M 512 the wgmma
+    kernel on the weight packed once (one GEMM launch, no pack); each row
+    also runs the tiled kernel (the first design) on the same arguments,
+    which must agree bit for bit, and times it beside it (``prev_ms``),
+    with the plan.  M 512 rows also time the front door on the unpacked
+    [K, N] weight, pack included (``unpacked_call_ms``), and the wgmma
+    launcher alone on arguments prepared once (``launcher_ms``).  Then the pack
+    kernel against its plain version at each M 512 row's (K, N).
+    Returns (GEMM rows, pack rows)."""
     from repro_torch.core.quant import compute_qparams
     from repro_torch.kernels import int8_matmul as IK
     from repro_torch.kernels import ops, ref
@@ -681,7 +720,13 @@ def phase_int8_kernels() -> list:
     ]
     max_clusters = IK._build.load(
         "int8_matmul").int8_matmul_splitk_max_clusters
-    results = []
+    cuda = IK.int8_matmul_cuda
+
+    def counts():
+        return (cuda.launches, cuda.splitk_launches, cuda.wgmma_launches,
+                cuda.pack_launches)
+
+    results, packs = [], []
     for c in cases:
         a, b0, qa, qb = c["a"], c["bs"][0], c["qa"], c["qb"]
         m, k = a.shape
@@ -690,16 +735,20 @@ def phase_int8_kernels() -> list:
         if c["requant"]:
             kw["out_qp"] = compute_qparams(ref.int8_matmul_ref(a, b0, qa, qb,
                                                                **kw))
-        plan = IK._plan_splitk(m, k, n) if m <= IK._SPLITK_MAX_M else None
-        launches0 = (IK.int8_matmul_cuda.launches,
-                     IK.int8_matmul_cuda.splitk_launches)
-        out = ops.int8_matmul(a, b0, qa, qb, **kw)
+        design = "splitk" if m <= IK._SPLITK_MAX_M else "wgmma"
+        # the wgmma kernel's rows run on weights packed once, up front
+        ws = c["bs"] if design == "splitk" else [IK.pack_int8_weight(b)
+                                                 for b in c["bs"]]
+        before = counts()
+        out = ops.int8_matmul(a, ws[0], qa, qb, **kw)
         torch.cuda.synchronize()
-        if (IK.int8_matmul_cuda.launches, IK.int8_matmul_cuda.splitk_launches
-                ) != (launches0[0] + 1, launches0[1] + (plan is not None)):
+        want = (before[0] + 1, before[1] + (design == "splitk"),
+                before[2] + (design == "wgmma"), before[3])
+        if counts() != want:
             raise AssertionError(f"{c['name']}: the front door did not "
-                                 f"launch the {'split-K' if plan else 'tiled'}"
-                                 f" kernel exactly once")
+                                 f"launch the {design} kernel exactly once "
+                                 f"(and pack nothing): {before} -> "
+                                 f"{counts()}")
         plain = ref.int8_matmul_ref(a, b0, qa, qb, **kw)
         if out.dtype != plain.dtype or out.shape != plain.shape:
             raise AssertionError(f"{c['name']}: {out.dtype} {out.shape} vs "
@@ -722,7 +771,7 @@ def phase_int8_kernels() -> list:
         nb = len(c["bs"])
 
         def run_kernel():
-            ops.int8_matmul(a, c["bs"][next(it) % nb], qa, qb, **kw)
+            ops.int8_matmul(a, ws[next(it) % nb], qa, qb, **kw)
 
         def run_plain():
             ref.int8_matmul_ref(a, c["bs"][next(it) % nb], qa, qb, **kw)
@@ -733,16 +782,34 @@ def phase_int8_kernels() -> list:
             IK.int8_matmul_tiled(a, c["bs"][next(it) % nb], *args[2:],
                                  **kargs)
 
-        prev = {}
-        if plan is not None:
-            # the tiled kernel on the front door's own arguments: bit for
-            # bit, since both run one epilogue on exact int32 sums
-            if not torch.equal(IK.int8_matmul_tiled(*args, **kargs), out):
-                raise AssertionError(f"{c['name']}: split-K and tiled "
-                                     f"kernels differ")
-            prev = dict(kernel_design="splitk", bitwise_equal_prev=True,
-                        cluster=plan[0], slice_k=plan[1], smem_bytes=plan[2],
+        def run_unpacked():
+            ops.int8_matmul(a, c["bs"][next(it) % nb], qa, qb, **kw)
+
+        def run_launcher():
+            IK.int8_matmul_wgmma(a, ws[next(it) % nb], *args[2:], **kargs)
+
+        # the tiled kernel on the front door's own arguments: bit for bit,
+        # since every design runs one epilogue on exact int32 sums
+        if not torch.equal(IK.int8_matmul_tiled(*args, **kargs), out):
+            raise AssertionError(f"{c['name']}: {design} and tiled kernels "
+                                 f"differ")
+        prev = dict(kernel_design=design, bitwise_equal_prev=True)
+        if design == "splitk":
+            plan = IK._plan_splitk(m, k, n)
+            prev.update(cluster=plan[0], slice_k=plan[1], smem_bytes=plan[2],
                         max_active_clusters=max_clusters(m, n, *plan[:2]))
+        else:
+            plan = IK._plan_wgmma(m, k, n)
+            prev.update(bn=plan[0], grid=plan[1], smem_bytes=plan[2])
+            # the front door on the [K, N] weight packs it for the call
+            before = counts()
+            if not torch.equal(ops.int8_matmul(a, b0, qa, qb, **kw), out):
+                raise AssertionError(f"{c['name']}: the unpacked call "
+                                     f"differs")
+            if counts() != (before[0] + 1, before[1], before[2] + 1,
+                            before[3] + 1):
+                raise AssertionError(f"{c['name']}: the unpacked call did "
+                                     f"not pack once and launch once")
         a_mm, int_mm = _int_mm_layouts(a, c["bs"], m)
         if c["identity"]:
             if not torch.equal(out, torch._int_mm(a_mm, b0)[:m].float()):
@@ -750,15 +817,18 @@ def phase_int8_kernels() -> list:
                                      f"differs from torch._int_mm")
         # plain, tiled, kernel, kernel, tiled, plain: the versions in turns
         plain_ms = graph_ms(run_plain, iters=5)
-        if plan is not None:
-            prev["prev_ms"] = graph_ms(run_prev)
+        prev["prev_ms"] = graph_ms(run_prev)
         kernel_ms = graph_ms(run_kernel)
         kernel_call_ms = cuda_ms(run_kernel)
         kernel_ms = min(kernel_ms, graph_ms(run_kernel))
-        if plan is not None:
-            prev["prev_ms"] = min(prev["prev_ms"], graph_ms(run_prev))
-            prev["prev_call_ms"] = cuda_ms(run_prev)
+        prev["prev_ms"] = min(prev["prev_ms"], graph_ms(run_prev))
+        prev["prev_call_ms"] = cuda_ms(run_prev)
         plain_ms = min(plain_ms, graph_ms(run_plain, iters=5))
+        if design == "wgmma":
+            prev["unpacked_call_ms"] = graph_ms(run_unpacked)
+            # the kernel alone, on arguments prepared once (the front door
+            # prepares them per call: broadcasts of a per-tensor scale)
+            prev["launcher_ms"] = graph_ms(run_launcher)
         nbytes = (m * k + k * n + m * n * out.element_size()
                   + 4 * n * (3 if c["bias"] is not None else 2))
         ops_n = 2 * m * k * n
@@ -772,33 +842,77 @@ def phase_int8_kernels() -> list:
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bytes=nbytes, ops=ops_n, library_ms=None,
                  int_mm_ms=int_mm["nn"], int_mm_tn_ms=int_mm["tn"],
-                 int_mm_rows=a_mm.shape[0], b_copies=nb,
-                 **({"kernel_design": "tiled"} if plan is None else prev))
+                 int_mm_rows=a_mm.shape[0], b_copies=nb, **prev)
         emit("kernels", **r)
         results.append(r)
-        del c["bs"]
+        if design == "wgmma" and (k, n) not in {(p["k"], p["n"])
+                                                for p in packs}:
+            packs.append(_pack_row(c["bs"], k, n))
+        del c["bs"], ws
     torch.cuda.empty_cache()
-    return results
+    return results, packs
+
+
+def _pack_row(bs, k, n) -> dict:
+    """The pack kernel against its plain version (``w.t().contiguous()``
+    and an int32 colsum; exact) on weight copies ``bs`` [K, N], timed
+    plain, kernel, kernel, plain; its bound is one read of w and one
+    write of the copy and the colsum."""
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import ref
+    got = IK.pack_int8_weight_cuda(bs[0])
+    nk, colsum = ref.pack_int8_weight_ref(bs[0])
+    torch.cuda.synchronize()
+    if not (torch.equal(got.nk, nk) and torch.equal(got.colsum, colsum)):
+        raise AssertionError(f"pack {k}x{n}: kernel and plain differ")
+    it = iter(range(10 ** 9))
+
+    def run_kernel():
+        IK.pack_int8_weight_cuda(bs[next(it) % len(bs)])
+
+    def run_plain():
+        ref.pack_int8_weight_ref(bs[next(it) % len(bs)])
+
+    plain_ms = graph_ms(run_plain)
+    kernel_ms = min(graph_ms(run_kernel), graph_ms(run_kernel))
+    plain_ms = min(plain_ms, graph_ms(run_plain))
+    nbytes = 2 * k * n + 4 * n
+    r = dict(kernel="int8_pack_weight", shape=f"pack_{k}x{n}", k=k, n=n,
+             max_abs_err=0.0, kernel_ms=kernel_ms, plain_ms=plain_ms,
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             bytes=nbytes, library_ms=None)
+    emit("kernels", **r)
+    return r
 
 
 def phase_int8_threshold() -> list:
-    """The split-K kernel's rows threshold and cluster size, measured: at
-    deepseek-7b's three edge GEMM shapes, the split-K kernel
+    """The front door's rows threshold and each design's plan, measured:
+    at deepseek-7b's three edge GEMM shapes, the split-K kernel
     (``int8_matmul_splitk``, its own plan) and the tiled kernel in turns
     at M = 1, 4, 8, 16 and 32, then the split-K kernel at M = 4 and 16
-    over cluster sizes 1, 2, 3, 4, 6 and 8 (``cluster_ms``; f32 out,
+    over cluster sizes 1, 2, 3, 4, 6 and 8 (``cluster_ms``); then the
+    wgmma kernel (``int8_matmul_wgmma`` on packed weights) against the
+    tiled kernel, and the split-K kernel at M = 32, at M = 32, 48, 64,
+    128, 256 and 512, with the wgmma plans (128- and 192-column tiles,
+    persistent or one CTA a tile) at 512 (``plan_ms``).  f32 out,
     per-channel scales, no bias; CUDA-graph replayed, B streamed from
-    device memory).  First the launch floor of both kernels: M 4, K 128,
-    N 64 (``int8_floor``)."""
+    device memory.  First each design's launch floor (``int8_floor``):
+    split-K and tiled at M 4, K 128, N 64; wgmma at M 64, K 128, N
+    128."""
     from repro_torch.kernels import int8_matmul as IK
     from repro_torch.kernels import ops
     rows = []
-    # the launch floor: one CTA of one stage, one 64-column tile
+    # the launch floor: one CTA of one stage, one output tile
     c = _int8_case("floor", 4, 128, 64, seed=29)
     args, kargs = ops.kernel_args(c["a"], c["bs"][0], c["qa"], c["qb"])
     floor = dict(m=4, k=128, n=64, splitk_ms=graph_ms(
         lambda: IK.int8_matmul_splitk(*args, **kargs)), tiled_ms=graph_ms(
         lambda: IK.int8_matmul_tiled(*args, **kargs)))
+    c = _int8_case("floor_wgmma", 64, 128, 128, seed=28)
+    args, kargs = ops.kernel_args(c["a"], IK.pack_int8_weight(c["bs"][0]),
+                                  c["qa"], c["qb"])
+    floor.update(wgmma_m=64, wgmma_k=128, wgmma_n=128, wgmma_ms=graph_ms(
+        lambda: IK.int8_matmul_wgmma(*args, **kargs)))
     emit("int8_floor", **floor)
     for i, (k, n) in enumerate(((4096, 4096), (4096, 11008), (11008, 4096))):
         c = _int8_case(f"{k}x{n}", 32, k, n, seed=30 + i)
@@ -833,6 +947,86 @@ def phase_int8_threshold() -> list:
         rows.append(row)
         del c
     torch.cuda.empty_cache()
+    for i, (k, n) in enumerate(((4096, 4096), (4096, 11008), (11008, 4096))):
+        c = _int8_case(f"{k}x{n}", 512, k, n, seed=40 + i)
+        nb = len(c["bs"])
+        packed = [IK.pack_int8_weight(b) for b in c["bs"]]
+        it = iter(range(10 ** 9))
+        args, kargs = ops.kernel_args(c["a"], c["bs"][0], c["qa"], c["qb"])
+        per_m = {}
+        for m in (32, 48, 64, 128, 256, 512):
+            a = c["a"][:m].contiguous()
+
+            def wgmma(a=a, **plan):
+                IK.int8_matmul_wgmma(a, packed[next(it) % nb], *args[2:],
+                                     **plan, **kargs)
+
+            def tiled(a=a):
+                IK.int8_matmul_tiled(a, c["bs"][next(it) % nb], *args[2:],
+                                     **kargs)
+
+            def splitk(a=a):
+                IK.int8_matmul_splitk(a, c["bs"][next(it) % nb], *args[2:],
+                                      **kargs)
+
+            kernels = dict(wgmma=wgmma, tiled=tiled)
+            if m <= IK._SPLITK_MAX_M:
+                kernels["splitk"] = splitk
+            # in turns, each twice, the lower time kept
+            v = {f"{name}_ms": graph_ms(fn) for name, fn in kernels.items()}
+            for name, fn in reversed(kernels.items()):
+                v[f"{name}_ms"] = min(v[f"{name}_ms"], graph_ms(fn))
+            v["fastest"] = min(kernels, key=lambda name: v[f"{name}_ms"])
+            v["wgmma_plan"] = list(IK._plan_wgmma(m, k, n))
+            if m == 512:
+                v["plan_ms"] = {
+                    f"bn{bn}_{'persistent' if pers else 'per_tile'}":
+                        graph_ms(lambda bn=bn, pers=pers: wgmma(
+                            bn=bn, persistent=pers))
+                    for bn in IK._WG_BNS for pers in (True, False)}
+            per_m[m] = v
+        row = dict(k=k, n=n, per_m=per_m,
+                   fastest={m: v["fastest"] for m, v in per_m.items()})
+        emit("int8_threshold_wgmma", **row)
+        rows.append(row)
+        del c, packed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8_epilogues() -> list:
+    """What each epilogue costs: the wgmma and tiled kernels at M 512 on
+    the attention projection's and gate/up's (K, N), with bias, for each
+    activation (none, relu, gelu, silu) with f32 and with int8 out
+    (``int8_epilogues``; CUDA-graph replayed, B streamed)."""
+    from repro_torch.core.quant import compute_qparams
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for i, (k, n) in enumerate(((4096, 4096), (4096, 11008))):
+        c = _int8_case(f"{k}x{n}", 512, k, n, seed=50 + i, bias=True)
+        nb = len(c["bs"])
+        packed = [IK.pack_int8_weight(b) for b in c["bs"]]
+        it = iter(range(10 ** 9))
+        ms = {}
+        for act in (None, "relu", "gelu", "silu"):
+            for out in ("f32", "int8"):
+                kw = dict(bias=c["bias"], act=act)
+                if out == "int8":
+                    kw["out_qp"] = compute_qparams(ref.int8_matmul_ref(
+                        c["a"], c["bs"][0], c["qa"], c["qb"], **kw))
+                args, kargs = ops.kernel_args(c["a"], c["bs"][0], c["qa"],
+                                              c["qb"], **kw)
+                ms[f"{act or 'none'}_{out}"] = dict(
+                    wgmma_ms=graph_ms(lambda: IK.int8_matmul_wgmma(
+                        c["a"], packed[next(it) % nb], *args[2:], **kargs)),
+                    tiled_ms=graph_ms(lambda: IK.int8_matmul_tiled(
+                        c["a"], c["bs"][next(it) % nb], *args[2:], **kargs)))
+        row = dict(m=512, k=k, n=n, bias=True, ms=ms)
+        emit("int8_epilogues", **row)
+        rows.append(row)
+        del c, packed
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -850,7 +1044,8 @@ def phase_quantized_dense(params, cfg) -> dict:
     """The INT8 GEMM's front door at full width: the main path's prompts
     (4 x 128 rows) embedded and rmsnormed, through layer 0's ``wq``,
     gate/up ``wi`` and down ``wo`` (the SwiGLU product of the f32 path as
-    its input) of the seeded deepseek-7b, each quantized per channel.
+    its input) of the seeded deepseek-7b, each quantized per channel and
+    packed once (one wgmma launch and no pack a weight).
     Held against the plain version, and against the f32 product within
     the noise the two INT8 lattices predict: rounding x and w to steps
     dx and dw[j] adds (M dx^2 |w|^2 + |x|^2 sum_j dw[j]^2) / 12 to the
@@ -874,14 +1069,18 @@ def phase_quantized_dense(params, cfg) -> dict:
                       blocks["mlp"]["wo"]["w"][0].float())
     hidden = (x @ wi) * F.silu(x @ wg)
     rows = []
+    cuda = IK.int8_matmul_cuda
     for name, inp, w in (("wq", x, wq), ("w1_gate_up", x, wi),
                          ("w2_down", hidden, wo)):
         qx, qw = compute_qparams(inp), compute_qparams(w, axis=1)
         w_q = quantize(w, qw)
-        launches0 = IK.int8_matmul_cuda.launches
-        got = ops.quantized_dense(inp, w_q, qx, qw)
+        packed = IK.pack_int8_weight(w_q)   # once, as a loader would
+        before = (cuda.launches, cuda.wgmma_launches, cuda.pack_launches)
+        got = ops.quantized_dense(inp, packed, qx, qw)
         torch.cuda.synchronize()
-        launches = IK.int8_matmul_cuda.launches - launches0
+        launches, wgmma_launches, pack_launches = (
+            cuda.launches - before[0], cuda.wgmma_launches - before[1],
+            cuda.pack_launches - before[2])
         want = ref.quantized_dense_ref(inp, w_q, qx, qw)
         truth = inp @ w
         diff = (got - want).abs()
@@ -892,14 +1091,18 @@ def phase_quantized_dense(params, cfg) -> dict:
              + (inp.double() ** 2).sum() * (qw.scale.double() ** 2).sum())
             / 12) / torch.linalg.norm(truth.double()))
         r = dict(weight=name, x=list(inp.shape), w=list(w.shape),
-                 launches=launches, max_abs_err_vs_plain=float(diff.max()),
+                 launches=launches, wgmma_launches=wgmma_launches,
+                 pack_launches=pack_launches,
+                 max_abs_err_vs_plain=float(diff.max()),
                  tol_vs_plain=float(bound.max()),
                  rel_l2_vs_f32=rel, predicted_rel_l2=noise,
                  plain_rel_l2_vs_f32=_rel_l2(want, truth),
                  within_1pct=rel < 0.01)
-        if launches != 1:
+        if (launches, wgmma_launches, pack_launches) != (1, 1, 0):
             raise AssertionError(f"quantized_dense {name}: {launches} "
-                                 f"launches, expected 1")
+                                 f"launches, {wgmma_launches} wgmma, "
+                                 f"{pack_launches} packs; expected 1, 1, "
+                                 f"0")
         if not bool((diff <= bound).all()):
             raise AssertionError(f"quantized_dense {name}: kernel vs plain "
                                  f"max abs err {float(diff.max())}")
@@ -995,6 +1198,9 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
     PA.paged_flash_mq_sharded.launches = 0
     IK.int8_matmul_cuda.launches = 0
     IK.int8_matmul_cuda.splitk_launches = 0
+    IK.int8_matmul_cuda.wgmma_launches = 0
+    IK.int8_matmul_cuda.pack_launches = 0
+    IK.pack_int8_weight_cuda.launches = 0
     t0 = time.perf_counter()
     outs = e.generate(prompts, max_new_tokens=max_new)
     torch.cuda.synchronize()
@@ -1020,6 +1226,8 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
                 int8_matmul_launches=IK.int8_matmul_cuda.launches,
                 int8_matmul_splitk_launches=(
                     IK.int8_matmul_cuda.splitk_launches),
+                int8_matmul_wgmma_launches=IK.int8_matmul_cuda.wgmma_launches,
+                int8_pack_launches=IK.pack_int8_weight_cuda.launches,
                 stats=st)
 
 
@@ -1089,6 +1297,9 @@ def phase_main_path(params, cfg) -> dict:
                int8_matmul_launches=first["int8_matmul_launches"],
                int8_matmul_splitk_launches=first[
                    "int8_matmul_splitk_launches"],
+               int8_matmul_wgmma_launches=first[
+                   "int8_matmul_wgmma_launches"],
+               int8_pack_launches=first["int8_pack_launches"],
                transmitted_bytes=st.transmitted_bytes,
                prefill_bytes=st.prefill_bytes,
                bytes_per_decode_token=st.bytes_per_decode_token(),
@@ -1191,6 +1402,9 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
                int8_matmul_launches=first["int8_matmul_launches"],
                int8_matmul_splitk_launches=first[
                    "int8_matmul_splitk_launches"],
+               int8_matmul_wgmma_launches=first[
+                   "int8_matmul_wgmma_launches"],
+               int8_pack_launches=first["int8_pack_launches"],
                transmitted_bytes=st.transmitted_bytes,
                prefill_bytes=st.prefill_bytes,
                bytes_per_decode_token=st.bytes_per_decode_token(),
@@ -1391,6 +1605,8 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
                    int8_matmul_launches=first["int8_matmul_launches"],
                    int8_matmul_splitk_launches=first[
                        "int8_matmul_splitk_launches"],
+                   int8_matmul_wgmma_launches=first[
+                       "int8_matmul_wgmma_launches"],
                    transmitted_bytes=st.transmitted_bytes,
                    tp1_transmitted_bytes=(main_res if k == 1
                                           else spec_res)["transmitted_bytes"],
@@ -1625,8 +1841,9 @@ def main(argv=None) -> int:
     phase_build()
     kres = phase_kernels()
     sres = phase_sharded_kernels()
-    ires = phase_int8_kernels()
+    ires, pres = phase_int8_kernels()
     phase_int8_threshold()
+    phase_int8_epilogues()
     if args.only == "kernels":
         return 0
     # one seeded set of deepseek-7b weights for phases 4-6
@@ -1648,15 +1865,17 @@ def main(argv=None) -> int:
     phase_path_parity()
     # each summary row is the kernel's main-path shape: the decode step
     # of 4 slots (int8_matmul_splitk: gate/up at M = 4; int8_matmul, the
-    # front door with the tiled kernel above 32 rows: gate/up at a 4 x
-    # 128 prefill; the serving path calls neither, so their main-path
-    # counts are 0 — read, not assumed)
+    # front door, and int8_matmul_wgmma, its kernel above 32 rows:
+    # gate/up at a 4 x 128 prefill on a packed weight; int8_pack_weight:
+    # that weight's pack; the serving path calls none of them, so their
+    # main-path counts are 0 — read, not assumed)
     dec = next(r for r in kres if r["shape"] == "deepseek7b_decode_int8")
     pre = next(r for r in kres if r["shape"] == "deepseek7b_prefill_int8")
     sdec = next(r for r in sres
                 if r["shape"] == "deepseek7b_decode_int8_tp2")
     mm = next(r for r in ires if r["shape"] == "int8mm_m512_4096x11008")
     sk = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
+    pk = next(r for r in pres if r["shape"] == "pack_4096x11008")
     print(json.dumps({"kernels": [{
         "name": "paged_flash_mq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1705,8 +1924,37 @@ def main(argv=None) -> int:
         "ms": mm["kernel_ms"], "plain_ms": mm["plain_ms"],
         "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
         "library_ms": None, "int_mm_ms": mm["int_mm_ms"],
-        "int_mm_tn_ms": mm["int_mm_tn_ms"], "kernel_design": "tiled",
+        "int_mm_tn_ms": mm["int_mm_tn_ms"],
+        "kernel_design": mm["kernel_design"], "prev_ms": mm["prev_ms"],
+        "unpacked_call_ms": mm["unpacked_call_ms"],
         "shape": mm["shape"]}, {
+        # B4 at M > 32: the wgmma kernel, launched through int8_matmul on
+        # a packed weight; its launches are counted apart too.  prev_ms:
+        # the tiled kernel, same arguments, same run
+        "name": "int8_matmul_wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul_sm90.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:139",
+        "launches": main_res["int8_matmul_wgmma_launches"],
+        "spec_path_launches": spec_res["int8_matmul_wgmma_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ires
+                           if r["out_dtype"] == "torch.float32"
+                           and r["kernel_design"] == "wgmma"),
+        "ms": mm["kernel_ms"], "plain_ms": mm["plain_ms"],
+        "bound_ms": mm["bound_ms"], "bound_by": mm["bound_by"],
+        "library_ms": None, "prev_ms": mm["prev_ms"],
+        "int_mm_ms": mm["int_mm_ms"], "int_mm_tn_ms": mm["int_mm_tn_ms"],
+        "bn": mm["bn"], "grid": mm["grid"], "shape": mm["shape"]}, {
+        # the wgmma kernel's layout step: [K, N] -> [N, K] and colsum once
+        # per weight (or per call on an unpacked weight)
+        "name": "int8_pack_weight", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul_sm90.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:139",
+        "launches": main_res["int8_pack_launches"],
+        "spec_path_launches": spec_res["int8_pack_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in pres),
+        "ms": pk["kernel_ms"], "plain_ms": pk["plain_ms"],
+        "bound_ms": pk["bound_ms"], "bound_by": pk["bound_by"],
+        "library_ms": None, "shape": pk["shape"]}, {
         # B4 at M <= 32: the split-K cluster kernel, launched through
         # int8_matmul; its launches are counted apart too.  prev_ms: the
         # tiled kernel, same arguments, same run

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
 at the repository root (listed in ``.gitignore``), keyed by a hash of the
-source, then loaded with ``ctypes``.  Nothing is built when a module is
-imported: the first call that launches a kernel builds it, and a second
-process finds the library already there.
+source and of the shared ``csrc/*.cuh`` headers, then loaded with
+``ctypes``.  Nothing is built when a module is imported: the first call
+that launches a kernel builds it, and a second process finds the library
+already there.
 """
 from __future__ import annotations
 
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, of every shared
+    header in ``csrc/`` (so a header edit rebuilds each library that may
+    include it) and of the flags."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(_CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:
@@ -65,11 +71,27 @@ def build(name: str) -> str:
     return proc.stdout
 
 
+def sources() -> list:
+    """The names of every ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in _CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, str]:
+    """Build every library not built yet, one ``nvcc`` per source, all
+    started together; returns each source's nvcc output (see ``build``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = sources()
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use; the
-    caller sets its entry points' ``argtypes``."""
+    """The loaded library for ``csrc/<name>.cu``; the first use builds
+    every library not built yet, in parallel.  The caller sets its entry
+    points' ``argtypes``."""
     lib = _LOADED.get(name)
     if lib is None:
-        build(name)
+        if not _lib_path(name).exists():
+            build_all()
         lib = _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib

@@ -1,30 +1,25 @@
 // Fused INT8 GEMM with a dequant -> activation -> requant epilogue, for
-// Hopper (sm_90a): two kernels of one function, chosen by shape.
+// Hopper (sm_90a): two of the three kernels of one function, chosen by
+// shape (the third, for M > 32, is in int8_matmul_sm90.cu).
 //
 // Replaces the TPU Pallas kernel `int8_matmul_pallas` of
 // src/repro/kernels/int8_matmul.py (body `_kernel`): the paper's on-device
 // layer (section 2.1, steps 1-4).  int8 A [M, K] (K contiguous) times int8
 // B [K, N] (N contiguous) into an int32 accumulator, with int32 rowsum(A)
 // and colsum(B) accumulated in the same K loop; the epilogue computes, in
-// f32 and in the reference's order of operations,
-//
-//   real = (sa * sb[n]) * (((acc - za * colsum[n]) - zb[n] * rowsum[m])
-//                          + (za * zb[n]) * K)  + bias[n]
-//
-// applies an activation (none / relu / gelu-tanh / silu) and writes f32,
-// or requantizes with rint(real / so + zo) clipped to [qmin, qmax] (round
-// half to even and a true division, as jnp.round and the oracle do).  The
-// f32 steps, the activations' included, use the _rn intrinsics, so no
-// multiply-add is contracted (tanhf and expf are the library's).  Both
-// kernels run this one epilogue (`store_output`) on exact int32 sums, so
-// they agree bit for bit.
+// f32 and in the reference's order of operations, the dequantization,
+// bias, activation and optional requantization of `store_output`
+// (int8_epilogue.cuh).  Both kernels here and the wgmma kernel of
+// int8_matmul_sm90.cu run that one epilogue on exact int32 sums, so they
+// agree bit for bit.
 //
 // What bounds it on an H100: at decode (M <= 32) the bytes of B, one pass
 // over the weight matrix (45 MB at 4096 x 11008); at prefill (M = 512) the
 // int8 tensor-core operations.
 //
 // `int8_matmul_kernel` (the first design, any M; the front door's kernel
-// above the small-M threshold):
+// above the small-M threshold where the wgmma kernel does not take the
+// shape: K not a multiple of 16, or an unaligned base):
 //   * int8 tensor cores through `mma.sync.aligned.m16n8k32` (s8 x s8 -> s32),
 //     which sm_90a keeps from Ampere; a CTA of 4 warps owns a 64 x 64 output
 //     tile, each warp 32 x 32;
@@ -85,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_epilogue.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -96,10 +93,6 @@ constexpr int kThreads = 128;     // 4 warps, 2 x 2 over the tile
 constexpr int kPitch = kBK + 16;  // bytes per shared row (A rows, B columns)
 constexpr int kWords = kPitch / 4;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kOnes = 0x01010101;
-
-enum Act { kActNone = 0, kActRelu = 1, kActGelu = 2, kActSilu = 3 };
-enum Out { kOutF32 = 0, kOutI8 = 1, kOutU8 = 2, kOutI16 = 3 };
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
                                        const unsigned (&b)[2]) {
@@ -132,87 +125,6 @@ __device__ __forceinline__ uint4 load_chunk(const int8_t* __restrict__ p, int ro
 
 __device__ __forceinline__ unsigned word(const uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// 4 x 4 byte transpose: x, y, z, w hold rows k .. k+3 of columns n .. n+3;
-// col[e] becomes column n + e's four K-consecutive bytes, row k lowest.
-__device__ __forceinline__ void transpose4x4(unsigned x, unsigned y, unsigned z,
-                                             unsigned w, unsigned* col) {
-  const unsigned t0 = __byte_perm(x, y, 0x5140), t1 = __byte_perm(x, y, 0x7362);
-  const unsigned t2 = __byte_perm(z, w, 0x5140), t3 = __byte_perm(z, w, 0x7362);
-  col[0] = __byte_perm(t0, t2, 0x5410);
-  col[1] = __byte_perm(t0, t2, 0x7632);
-  col[2] = __byte_perm(t1, t3, 0x5410);
-  col[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float x) {
-  if (ACT == kActRelu) return fmaxf(x, 0.f);
-  if (ACT == kActGelu) {
-    // jax.nn.gelu (approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
-    const float x3 = __fmul_rn(__fmul_rn(x, x), x);
-    const float inner = __fmul_rn(0.7978845608028654f,
-                                  __fadd_rn(x, __fmul_rn(0.044715f, x3)));
-    return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
-  }
-  if (ACT == kActSilu) return __fdiv_rn(x, __fadd_rn(1.f, expf(-x)));
-  return x;
-}
-
-// The epilogue's per-call scalars; both kernels read them once.
-struct Epilogue {
-  float sa, za, kf, so, zo;
-  int qmin, qmax;
-  bool has_bias;
-  void* out;
-};
-
-template <int OUT>
-__device__ __forceinline__ Epilogue load_epilogue(const float* sa_p, const float* za_p,
-                                                  const float* bias, const float* so_p,
-                                                  const float* zo_p, void* out, int K,
-                                                  int qmin, int qmax) {
-  Epilogue e;
-  e.sa = *sa_p;
-  e.za = *za_p;
-  e.kf = static_cast<float>(K);
-  e.so = 1.f;
-  e.zo = 0.f;
-  if (OUT != kOutF32) {
-    e.so = *so_p;
-    e.zo = *zo_p;
-  }
-  e.qmin = qmin;
-  e.qmax = qmax;
-  e.has_bias = bias != nullptr;
-  e.out = out;
-  return e;
-}
-
-// The fused epilogue of one output element from its exact int32
-// accumulator, colsum(B) of its column, rowsum(A) of its row and its
-// column's weight scale, zero point and bias; `idx` is its place in out.
-template <int ACT, int OUT>
-__device__ __forceinline__ void store_output(const Epilogue& e, int acc, int colsum,
-                                             int rowsum, float sbc, float zbc, float biasc,
-                                             size_t idx) {
-  float x = __fsub_rn(static_cast<float>(acc), __fmul_rn(e.za, static_cast<float>(colsum)));
-  x = __fsub_rn(x, __fmul_rn(zbc, static_cast<float>(rowsum)));
-  x = __fadd_rn(x, __fmul_rn(__fmul_rn(e.za, zbc), e.kf));
-  float real = __fmul_rn(__fmul_rn(e.sa, sbc), x);
-  if (e.has_bias) real = __fadd_rn(real, biasc);
-  real = activate<ACT>(real);
-  if (OUT == kOutF32) {
-    static_cast<float*>(e.out)[idx] = real;
-  } else {
-    float q = rintf(__fadd_rn(__fdiv_rn(real, e.so), e.zo));
-    q = fminf(fmaxf(q, static_cast<float>(e.qmin)), static_cast<float>(e.qmax));
-    const int qi = static_cast<int>(q);
-    if (OUT == kOutI8) static_cast<int8_t*>(e.out)[idx] = static_cast<int8_t>(qi);
-    if (OUT == kOutU8) static_cast<uint8_t*>(e.out)[idx] = static_cast<uint8_t>(qi);
-    if (OUT == kOutI16) static_cast<int16_t*>(e.out)[idx] = static_cast<int16_t>(qi);
-  }
 }
 
 template <int ACT, int OUT>
@@ -409,7 +321,6 @@ constexpr int kSkStageBytes = kSkBK * kSkBN;   // 8 KB of B per stage
 constexpr int kSkApitch = kSkBK + 16;          // bytes per A row of a stage
 constexpr int kSkMaxM = 32;                    // two 16-row fragments
 constexpr int kSkMaxCluster = 8;               // the portable cluster size
-constexpr int kMaxSmem = 232448;               // the most shared memory a CTA may have
 static_assert(kSkBK == 32 * kSkWarps, "one k32 step per warp and stage");
 static_assert(kSkThreads % kSkBN == 0, "a thread's output column is fixed");
 static_assert((kSkStages & (kSkStages - 1)) == 0, "a power-of-two ring");

@@ -7,7 +7,9 @@ tensor takes the plain version (``kernels.ref``), a CUDA tensor launches
 the hand-written kernels (``kernels.int8_matmul``, which picks the
 design by shape) or raises — nothing falls back.  The kernels take any
 shape, so unlike the reference nothing is padded here; a per-tensor
-``qb`` is broadcast to per-channel [N].
+``qb`` is broadcast to per-channel [N].  The weight is the reference's
+int8 [K, N] tensor or a ``PackedInt8Weight`` (``pack_int8_weight``, made
+once beside it); the plain version reads its [K, N] tensor.
 """
 from __future__ import annotations
 
@@ -16,27 +18,30 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import QuantParams, quantize
-from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.int8_matmul import (PackedInt8Weight, Weight,
+                                             int8_matmul_cuda)
 from repro_torch.kernels.ref import int8_matmul_ref
 
 __all__ = ["int8_matmul", "kernel_args", "quantized_dense"]
 
 
-def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
+def int8_matmul(a_q: torch.Tensor, b_q: Weight, qa: QuantParams,
                 qb: QuantParams, *, bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 out_qp: Optional[QuantParams] = None) -> torch.Tensor:
-    """Fused quantized matmul: int8 [M, K] @ int8 [K, N] → f32 [M, N], or
-    ``out_qp.storage_dtype`` when ``out_qp`` requantizes the output."""
+    """Fused quantized matmul: int8 [M, K] @ int8 [K, N] (or its
+    ``PackedInt8Weight``) → f32 [M, N], or ``out_qp.storage_dtype`` when
+    ``out_qp`` requantizes the output."""
     if not a_q.is_cuda:
-        return int8_matmul_ref(a_q, b_q, qa, qb, bias=bias, act=act,
+        kn = b_q.kn if isinstance(b_q, PackedInt8Weight) else b_q
+        return int8_matmul_ref(a_q, kn, qa, qb, bias=bias, act=act,
                                out_qp=out_qp)
     args, kw = kernel_args(a_q, b_q, qa, qb, bias=bias, act=act,
                            out_qp=out_qp)
     return int8_matmul_cuda(*args, **kw)
 
 
-def kernel_args(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
+def kernel_args(a_q: torch.Tensor, b_q: Weight, qa: QuantParams,
                 qb: QuantParams, *, bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 out_qp: Optional[QuantParams] = None) -> tuple:
@@ -59,14 +64,16 @@ def kernel_args(a_q: torch.Tensor, b_q: torch.Tensor, qa: QuantParams,
     if out_qp is not None:
         so, zo = f32(out_qp.scale), f32(out_qp.zero_point)
         out_dtype, qmin, qmax = out_qp.storage_dtype, out_qp.qmin, out_qp.qmax
-    return ((a_q.contiguous(), b_q.contiguous(), f32(qa.scale),
+    if not isinstance(b_q, PackedInt8Weight):
+        b_q = b_q.contiguous()
+    return ((a_q.contiguous(), b_q, f32(qa.scale),
              f32(qa.zero_point), per_channel(qb.scale),
              per_channel(qb.zero_point),
              None if bias is None else f32(bias).contiguous(), so, zo),
             dict(act=act, out_dtype=out_dtype, qmin=qmin, qmax=qmax))
 
 
-def quantized_dense(x: torch.Tensor, w_q: torch.Tensor, qx: QuantParams,
+def quantized_dense(x: torch.Tensor, w_q: Weight, qx: QuantParams,
                     qw: QuantParams, *, bias: Optional[torch.Tensor] = None,
                     act: Optional[str] = None,
                     out_qp: Optional[QuantParams] = None) -> torch.Tensor:

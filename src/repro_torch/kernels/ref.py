@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant import QuantParams, quantize
 
-__all__ = ["int8_epilogue_ref", "int8_matmul_ref", "quantized_dense_ref"]
+__all__ = ["int8_epilogue_ref", "int8_matmul_ref", "pack_int8_weight_ref",
+           "quantized_dense_ref"]
 
 # jax.nn.gelu defaults to the tanh approximation; torch's default is erf
 _ACTS = {
@@ -104,3 +105,9 @@ def quantized_dense_ref(x: torch.Tensor, w_q: torch.Tensor, qx: QuantParams,
     out = int8_matmul_ref(x_q, w_q, qx, qw, bias=bias, act=act,
                           out_qp=out_qp)
     return out.reshape(*lead, out.shape[-1])
+
+
+def pack_int8_weight_ref(w_q: torch.Tensor) -> tuple:
+    """The pack kernel's plain version: int8 ``w_q`` [K, N] → (its
+    contiguous K-major copy [N, K], its exact int32 colsum [N])."""
+    return w_q.t().contiguous(), w_q.sum(0, dtype=torch.int32)

@@ -550,6 +550,244 @@ def test_splitk_kernel_on_two_streams_at_once(cuda):
         assert all(torch.equal(x, y) for x, y in zip(step, solo))
 
 
+def _wg_counts():
+    return (IK.int8_matmul_cuda.launches, IK.int8_matmul_cuda.wgmma_launches,
+            IK.int8_matmul_cuda.pack_launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [33, 64, 65, 128, 129, 512, 1000])
+@pytest.mark.parametrize("k", [16, 128, 144, 4096, 11008])
+@pytest.mark.parametrize("n", [8, 40, 96, 4100, 11008])
+def test_wgmma_kernel_matches_plain_and_tiled(cuda, m, k, n):
+    """The front door at M > 32 on a packed weight launches the wgmma
+    kernel once and packs nothing; it equals the plain version to rtol
+    1e-5, atol 1e-4 and the tiled kernel bit for bit (one epilogue on
+    exact sums), at ragged M, N and K (TMA's zero fill past the edges;
+    K 16 and 144 end inside one 128-deep stage)."""
+    a, b, sa, za, sb, zb, bias, qa, qb = _sk_operands(m, k, n, m * k + n)
+    packed = IK.pack_int8_weight(b)
+    before = _wg_counts()
+    got = IK.int8_matmul_cuda(a, packed, sa, za, sb, zb, bias)
+    assert _wg_counts() == (before[0] + 1, before[1] + 1, before[2])
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias)
+    want = REF.int8_matmul_ref(a, b, qa, qb, bias=bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, tiled)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.int8,
+                                       torch.uint8, torch.int16])
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("n", [4100, 4099])
+def test_wgmma_kernel_epilogues(cuda, act, out_dtype, per_channel, n):
+    """Every activation and requant type, per-tensor and per-channel
+    weight scales, with bias, stored in pairs (N even) and one by one (N
+    odd): bitwise equal to the tiled kernel; f32 within 1e-4 of the plain
+    version, integer outputs within one lattice step in under 1 % of
+    elements."""
+    m, k = 512, 4096
+    a, b, sa, za, sb, zb, bias, qa, qb = _sk_operands(
+        m, k, n, 21 + per_channel, per_channel)
+    kw = dict(act=act, out_dtype=out_dtype)
+    ref_kw = dict(bias=bias, act=act)
+    if out_dtype != torch.float32:
+        so, zo, qmin, qmax, qp = _requant(
+            REF.int8_matmul_ref(a, b, qa, qb, **ref_kw), out_dtype)
+        kw.update(so=so, zo=zo, qmin=qmin, qmax=qmax)
+        ref_kw["out_qp"] = qp
+    got = IK.int8_matmul_wgmma(a, IK.pack_int8_weight(b), sa, za, sb, zb,
+                               bias, **kw)
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias, **kw)
+    want = REF.int8_matmul_ref(a, b, qa, qb, **ref_kw)
+    torch.cuda.synchronize()
+    assert got.dtype == tiled.dtype == want.dtype == out_dtype
+    assert torch.equal(got, tiled)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        diff = (got.int() - want.int()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) < 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(33, 4096, 4100), (512, 4096, 11008)])
+def test_wgmma_kernel_on_an_unpacked_weight(cuda, m, k, n):
+    """A plain [K, N] weight at M > 32 is packed for the call (one pack
+    launch) and goes to the same kernel: one GEMM launch, the same output
+    as on the packed weight."""
+    a, b, sa, za, sb, zb, bias, _, _ = _sk_operands(m, k, n, 60 + m)
+    packed_out = IK.int8_matmul_cuda(a, IK.pack_int8_weight(b), sa, za, sb,
+                                     zb, bias, act="gelu")
+    before = _wg_counts()
+    got = IK.int8_matmul_cuda(a, b, sa, za, sb, zb, bias, act="gelu")
+    assert _wg_counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, packed_out)
+
+
+@pytest.mark.gpu
+def test_front_door_keeps_the_tiled_kernel_where_wgmma_cannot(cuda):
+    """K not a multiple of 16, or A starting off a 16-byte boundary: the
+    tiled kernel, one launch, no pack, equal to the plain version."""
+    for k, offset in ((300, 0), (4096, 1)):
+        a0, b, sa, za, sb, zb, bias, qa, qb = _sk_operands(64, k, 96, k)
+        buf = torch.empty(64 * k + offset, dtype=torch.int8, device="cuda")
+        a = buf[offset:].view(64, k)
+        a.copy_(a0)
+        assert IK._design(64, k, a.data_ptr(), None) == "tiled"
+        before = _wg_counts()
+        got = OPS.int8_matmul(a, b, qa, qb, bias=bias)
+        assert _wg_counts() == (before[0] + 1, before[1], before[2])
+        want = REF.int8_matmul_ref(a0, b, qa, qb, bias=bias)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [128, 192])
+@pytest.mark.parametrize("persistent", [True, False])
+def test_wgmma_kernel_at_every_plan(cuda, bn, persistent):
+    """Both tile widths, a persistent grid (CTAs walking up to 3 tiles)
+    and one CTA per tile: the output never moves."""
+    a, b, sa, za, sb, zb, bias, _, _ = _sk_operands(1000, 4096, 11008, bn)
+    packed = IK.pack_int8_weight(b)
+    plan = IK._plan_wgmma(1000, 4096, 11008, bn, persistent)
+    assert plan[0] == bn
+    got = IK.int8_matmul_wgmma(a, packed, sa, za, sb, zb, bias, act="silu",
+                               bn=bn, persistent=persistent)
+    tiled = IK.int8_matmul_tiled(a, b, sa, za, sb, zb, bias, act="silu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, tiled)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [33, 512])
+def test_wgmma_identity_epilogue_is_the_int32_product(cuda, m):
+    g = torch.Generator(device="cuda").manual_seed(m)
+    a = torch.randint(-128, 128, (m, 4096), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (4096, 4100), generator=g, device="cuda",
+                      dtype=torch.int8)
+    one = torch.ones(1, device="cuda")
+    zero = torch.zeros(1, device="cuda")
+    got = IK.int8_matmul_cuda(a, IK.pack_int8_weight(b), one, zero,
+                              one.expand(4100).contiguous(),
+                              zero.expand(4100).contiguous())
+    want = (a.double() @ b.double()).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_wgmma_kernel_is_repeatable(cuda):
+    a, b, sa, za, sb, zb, bias, _, _ = _sk_operands(512, 11008, 4096, 70)
+    packed = IK.pack_int8_weight(b)
+    outs = [IK.int8_matmul_cuda(a, packed, sa, za, sb, zb, bias, act="relu")
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [True, False])
+def test_wgmma_kernel_replays_in_a_cuda_graph(cuda, packed):
+    """Captured with no eager call before (the capture encodes the call's
+    tensor maps and sets the kernel's shared-memory limit; an unpacked
+    weight captures the pack launch too), then replayed: the output
+    equals an eager launch."""
+    a, b, sa, za, sb, zb, bias, _, _ = _sk_operands(512, 4096, 11008,
+                                                    80 + packed)
+    w = IK.pack_int8_weight(b) if packed else b
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = IK.int8_matmul_cuda(a, w, sa, za, sb, zb, bias, act="gelu")
+    for _ in range(2):
+        graph.replay()
+    eager = IK.int8_matmul_cuda(a, w, sa, za, sb, zb, bias, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+def test_wgmma_kernel_on_two_streams_at_once(cuda):
+    """Launches on two streams share nothing (each call's own tensor maps,
+    no workspace): each output equals the same call made alone."""
+    cases = [_sk_operands(m, k, n, 90 + m)
+             for m, k, n in ((512, 11008, 4096), (256, 4096, 11008))]
+    packed = [IK.pack_int8_weight(c[1]) for c in cases]
+    solo = [IK.int8_matmul_cuda(c[0], p, *c[2:7])
+            for c, p in zip(cases, packed)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = []
+    for _ in range(3):
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        step = []
+        for st, c, p in zip(streams, cases, packed):
+            with torch.cuda.stream(st):
+                step.append(IK.int8_matmul_cuda(c[0], p, *c[2:7]))
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        outs.append(step)
+    torch.cuda.synchronize()
+    for step in outs:
+        assert all(torch.equal(x, y) for x, y in zip(step, solo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(1, 1), (16, 8), (17, 33), (300, 40),
+                                 (128, 4100), (4096, 4096), (4096, 11008),
+                                 (11008, 4096), (4100, 4099)])
+def test_pack_kernel_matches_plain(cuda, k, n):
+    """One pack launch: the [N, K] copy and the int32 colsum exactly equal
+    the plain version's, on the vector path and the byte path."""
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    w = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    before = IK.pack_int8_weight_cuda.launches
+    p = IK.pack_int8_weight(w)
+    assert IK.pack_int8_weight_cuda.launches == before + 1
+    nk, colsum = REF.pack_int8_weight_ref(w)
+    torch.cuda.synchronize()
+    assert p.kn is w and p.nk.is_contiguous()
+    assert torch.equal(p.nk, nk) and torch.equal(p.colsum, colsum)
+
+
+@pytest.mark.gpu
+def test_wgmma_shared_memory_matches_the_plan(cuda):
+    """The CUDA source's shared-memory size and the Python mirror."""
+    fn = IK._build.load("int8_matmul_sm90").int8_matmul_wgmma_smem_bytes
+    for bn in IK._WG_BNS:
+        assert fn(bn) == IK._wgmma_smem_bytes(bn) <= IK._SK_MAX_SMEM
+
+
+@pytest.mark.gpu
+def test_quantized_dense_on_a_packed_weight_on_card(cuda):
+    """The front door on a packed weight at prefill-sized M: one GEMM
+    launch, one wgmma launch, no pack; equal to the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((4, 128, 512), generator=g, device="cuda")
+    w = torch.randn((512, 1024), generator=g, device="cuda")
+    qx, qw = compute_qparams(x), compute_qparams(w, axis=1)
+    w_q = quantize(w, qw)
+    packed = IK.pack_int8_weight(w_q)
+    before = _wg_counts()
+    got = OPS.quantized_dense(x, packed, qx, qw, act="silu")
+    assert _wg_counts() == (before[0] + 1, before[1] + 1, before[2])
+    want = REF.quantized_dense_ref(x, w_q, qx, qw, act="silu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("spec_k", [1, 4])
 def test_tp_engine_on_card_matches_cpu(cuda, spec_k):

@@ -328,3 +328,205 @@ def test_splitk_launchers_need_cuda_tensors():
             fn(_t(a_q), _t(b_q), one, one, torch.ones(8), torch.ones(8))
     assert TK.int8_matmul_splitk.launches == TK.int8_matmul_tiled.launches \
         == TK.int8_matmul_cuda.splitk_launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The wgmma kernel (M > 32): its plan, the dispatch rule, the packed weight
+# ---------------------------------------------------------------------------
+
+WG_MS = [33, 48, 64, 65, 100, 127, 128, 129, 256, 257, 512, 1000, 1024]
+WG_NS = [1, 8, 40, 96, 127, 4096, 4100, 11008]
+
+
+@pytest.mark.parametrize("m", WG_MS)
+def test_wgmma_plan_covers_every_tile_once(m):
+    """Every plan (128- and 192-column tiles, persistent or one CTA per
+    tile): the CTAs' walks cover each 128 x BN output tile exactly once,
+    no CTA is idle, and the CTA fits in 227 KB of shared memory."""
+    for n in WG_NS:
+        for bn in (None, 128, 192):
+            for persistent in (None, True, False):
+                plan = TK._plan_wgmma(m, 4096, n, bn, persistent)
+                width, grid, smem = plan
+                walks = TK._wgmma_tiles(m, n, plan)
+                tiles = [t for w in walks for t in w]
+                want = {(r, c) for r in range(0, m, 128)
+                        for c in range(0, n, width)}
+                assert len(tiles) == len(set(tiles)) and set(tiles) == want
+                assert all(walks) and len(walks) == grid
+                assert grid == (len(want) if persistent is False
+                                else min(len(want), TK._SMS))
+                assert smem == TK._wgmma_smem_bytes(width) <= TK._SK_MAX_SMEM
+
+
+def test_wgmma_plan_at_the_edge_shapes():
+    """deepseek-7b's prefill GEMMs at M 512: 4 x 32 = 128 tiles at N 4096,
+    one wave on 132 SMs; at N 11008 4 x 58 = 232 tiles of 192 columns,
+    walked by 132 CTAs (2 tiles, 384 columns on the busiest, where 128
+    columns would give it 3 tiles of the same 384); no plan where K is not
+    a positive multiple of 16."""
+    assert TK._plan_wgmma(512, 4096, 4096)[:2] == (128, 128)
+    assert TK._plan_wgmma(512, 11008, 4096)[:2] == (128, 128)
+    assert TK._plan_wgmma(512, 1024, 4096)[:2] == (128, 128)
+    assert TK._plan_wgmma(512, 4096, 11008)[:2] == (192, 132)
+    assert TK._plan_wgmma(512, 4096, 11008, bn=128)[:2] == (128, 132)
+    assert TK._plan_wgmma(512, 4096, 11008, persistent=False)[:2] == (192, 232)
+    assert TK._plan_wgmma(33, 4096, 40)[:2] == (128, 1)
+    assert TK._plan_wgmma(1024, 4096, 11008)[:2] == (192, 132)
+    assert TK._plan_wgmma(512, 4096, 11008, bn=128, persistent=False)[:2] \
+        == (128, 344)
+    assert len(TK._wgmma_tiles(512, 11008, TK._plan_wgmma(512, 4096,
+                                                          11008))[0]) == 2
+    for k in (0, 8, 17, 300, 4100 + 1):
+        assert TK._plan_wgmma(512, k, 4096) is None
+    with pytest.raises(ValueError, match="bn"):
+        TK._plan_wgmma(512, 4096, 4096, bn=256)
+
+
+@pytest.mark.parametrize("m,k,a_ptr,nk_ptr,want", [
+    (1, 4096, 0, None, "splitk"),
+    (32, 4096, 16, 32, "splitk"),
+    (32, 300, 3, None, "splitk"),
+    (33, 4096, 0, None, "wgmma"),
+    (33, 16, 256, 512, "wgmma"),
+    (512, 11008, 64, 128, "wgmma"),
+    (1024, 144, 0, 0, "wgmma"),
+    (33, 300, 0, None, "tiled"),
+    (512, 4104 + 1, 0, None, "tiled"),
+    (512, 8, 0, 0, "tiled"),
+    (512, 0, 0, None, "tiled"),
+    (512, 4096, 1, None, "tiled"),
+    (512, 4096, 0, 8, "tiled"),
+])
+def test_dispatch_rule(m, k, a_ptr, nk_ptr, want):
+    """The front door's kernel from the shape and the alignment alone:
+    split-K at M <= 32, wgmma above where K is a positive multiple of 16
+    and A's and the packed weight's bases are 16-byte aligned (a weight
+    packed for the call always is), the tiled kernel otherwise."""
+    assert TK._design(m, k, a_ptr, nk_ptr) == want
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (16, 8), (17, 33), (300, 40),
+                                 (4096, 96)])
+def test_pack_int8_weight_ref(k, n):
+    """The plain pack: the contiguous transpose and the exact int32
+    colsum (int8 extremes included, past int8's and int16's range)."""
+    rng = np.random.RandomState(k + n)
+    w = rng.randint(-128, 128, (k, n)).astype(np.int8)
+    w[:, 0] = -128
+    nk, colsum = TR.pack_int8_weight_ref(torch.tensor(w))
+    assert nk.is_contiguous() and nk.dtype == torch.int8
+    np.testing.assert_array_equal(nk.numpy(), w.T)
+    assert colsum.dtype == torch.int32
+    np.testing.assert_array_equal(colsum.numpy(),
+                                  w.astype(np.int64).sum(0))
+
+
+def test_pack_int8_weight_on_cpu_takes_the_plain_version():
+    w = torch.tensor(np.random.RandomState(3).randint(
+        -128, 128, (300, 40)).astype(np.int8))
+    p = TK.pack_int8_weight(w)
+    assert isinstance(p, TK.PackedInt8Weight)
+    assert p.kn is w and p.shape == w.shape
+    assert torch.equal(p.nk, w.t()) and torch.equal(p.colsum,
+                                                    w.sum(0, dtype=torch.int32))
+    assert TK.pack_int8_weight_cuda.launches == 0
+    with pytest.raises(ValueError, match="int8"):
+        TK.pack_int8_weight(w.float())
+
+
+@pytest.mark.parametrize("m", [33, 64, 130])
+@pytest.mark.parametrize("k", [64, 300, 4096])
+def test_packed_weight_matches_reference(m, k):
+    """The front doors on a ``PackedInt8Weight`` equal the plain [K, N]
+    call exactly and the JAX ``int8_matmul`` (Pallas in interpret mode)
+    and oracle within the f32 tolerance, at the wgmma kernel's M (and K
+    300, which takes the tiled kernel on the card)."""
+    a_q, b_q, qa, qw = _inputs(m, k, 40, seed=m + k, per_channel=True)
+    packed = TK.pack_int8_weight(_t(b_q))
+    got = TO.int8_matmul(_t(a_q), packed, _qp(qa), _qp(qw))
+    plain = TO.int8_matmul(_t(a_q), _t(b_q), _qp(qa), _qp(qw))
+    assert torch.equal(got, plain)
+    pallas = JO.int8_matmul(a_q, b_q, qa, qw, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32_TOL)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(JR.int8_matmul_ref(a_q, b_q, qa, qw)),
+        **F32_TOL)
+    assert TK.int8_matmul_cuda.launches == TK.int8_matmul_cuda.pack_launches \
+        == TK.int8_matmul_cuda.wgmma_launches == 0
+
+
+@pytest.mark.parametrize("act,requant", [(None, False), ("relu", True),
+                                         ("silu", False)])
+def test_quantized_dense_on_a_packed_weight(act, requant):
+    """``quantized_dense`` on a packed weight equals the plain call and
+    the JAX front door (interpret mode): f32 within the tolerance, the
+    requantized lattice within one step in under 1 % of elements."""
+    rng = np.random.RandomState(17)
+    x = rng.randn(2, 40, 256).astype(np.float32)
+    w = rng.randn(256, 48).astype(np.float32)
+    qx = compute_qparams(jnp.asarray(x))
+    qw = compute_qparams(jnp.asarray(w), axis=1)
+    w_q = jquantize(jnp.asarray(w), qw)
+    out_qp = None
+    if requant:
+        out_qp = compute_qparams(JR.quantized_dense_ref(
+            jnp.asarray(x), w_q, qx, qw, act=act))
+    t_out = None if out_qp is None else _qp(out_qp)
+    packed = TK.pack_int8_weight(_t(w_q))
+    got = TO.quantized_dense(_t(x), packed, _qp(qx), _qp(qw), act=act,
+                             out_qp=t_out)
+    plain = TO.quantized_dense(_t(x), _t(w_q), _qp(qx), _qp(qw), act=act,
+                               out_qp=t_out)
+    assert torch.equal(got, plain) and tuple(got.shape) == (2, 40, 48)
+    pallas = np.asarray(JO.quantized_dense(jnp.asarray(x), w_q, qx, qw,
+                                           act=act, out_qp=out_qp,
+                                           interpret=True))
+    if requant:
+        diff = np.abs(got.numpy().astype(np.int32) - pallas.astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+    else:
+        np.testing.assert_allclose(got.numpy(), pallas, **F32_TOL)
+
+
+def test_wgmma_launchers_need_cuda_tensors():
+    a_q, b_q, qa, qw = _inputs(64, 64, 8, seed=18)
+    one = torch.ones(())
+    packed = TK.pack_int8_weight(_t(b_q))
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.int8_matmul_wgmma(_t(a_q), packed, one, one, torch.ones(8),
+                             torch.ones(8))
+    with pytest.raises(ValueError, match="PackedInt8Weight"):
+        TK.int8_matmul_wgmma(_t(a_q), _t(b_q), one, one, torch.ones(8),
+                             torch.ones(8))
+    for b in (_t(b_q), packed):
+        with pytest.raises(ValueError, match="CUDA"):
+            TK.int8_matmul_cuda(_t(a_q), b, one, one, torch.ones(8),
+                                torch.ones(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.pack_int8_weight_cuda(_t(b_q))
+    assert TK.int8_matmul_wgmma.launches == TK.pack_int8_weight_cuda.launches \
+        == TK.int8_matmul_cuda.wgmma_launches == 0
+
+
+def test_library_names_hash_the_shared_headers(tmp_path, monkeypatch):
+    """A shared header's edit renames (so rebuilds) every library; a
+    source's edit only its own."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    names = _build.sources()
+    assert {"int8_matmul", "int8_matmul_sm90", "paged_attention"} <= \
+        set(names)
+    before = {n: _build._lib_path(n) for n in names}
+    hdr = csrc / "int8_epilogue.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: _build._lib_path(n) for n in names}
+    assert all(before[n] != after[n] for n in names)
+    src = csrc / "int8_matmul.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {n: _build._lib_path(n) for n in names}
+    assert again["int8_matmul"] != after["int8_matmul"]
+    assert all(again[n] == after[n] for n in names if n != "int8_matmul")
