@@ -57,17 +57,32 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     ``torch.profiler`` window of its traffic.  Then,
                     untimed, where the spec stream first leaves the
                     serial one, with each side's top-2 logit gap there.
-7. ``tp_path``    — the same engine, weights and traffic with the cloud
+7. ``sampled_path`` — the same engine, weights and traffic, sampled
+                    (``temperature=0.8, top_p=0.9``, request i with seed
+                    i), serially and with ``spec_k=4``, each on two fresh
+                    engines (one timed run each, then a profile window):
+                    tokens/s, acceptance, tokens per round, B1 launches
+                    (split and tensor-core; asserted at the greedy paths'
+                    formulas), top device ops.  Checked: the fresh
+                    engines' streams identical; a ``temperature=0`` run
+                    equal to the greedy main path, entering no sampled
+                    phase; serial and spec equal at output index 0; the
+                    card's threefry keys, uniforms and a [16, 102400] draw
+                    equal to the CPU's (``sampling_ops``); wire bytes equal
+                    to the greedy serial run's and, with ``spec_k=4``, to
+                    the rounds' greedy framing plus the f32 draft rows.
+8. ``tp_path``    — the same engine, weights and traffic with the cloud
                     tensor-parallel over ``make_serve_mesh(model=2)`` on
                     the one card, serially and with ``spec_k=4`` (three
                     timed repeats each, a profile of the serial run),
                     then ``model=4`` serially once: tokens/s, launches,
                     sharded calls, wire bytes, peak memory; the launch
                     counts and the serial wire bytes are asserted.
-8. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
+9. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
-                    (or, at a near-tie, the teacher-forced logits); in
+                    (or, at a near-tie, the teacher-forced logits), and a
+                    lossless sampled stream the CPU's exactly; in
                     the INT8 default the ``spec_k=4`` stream must equal
                     the serial one on each device, and the card's
                     decisions the CPU's up to a tie; at tp = 2 on the
@@ -1184,11 +1199,12 @@ def _prompts(n, plen, vocab, seed):
     return [rng.randint(0, vocab, plen).astype(np.int32) for _ in range(n)]
 
 
-def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
-    """One run of ``prompts`` through engine ``e``: the kernels' launch
-    counts (and the sharded form's calls) are set to 0 just before and
-    read just after, and ``paged_flash_mq``'s must equal
-    ``expect(stats)``, the count the engine's code implies."""
+def _timed(e, prompts, max_new, vocab, expect, what, sampling=None) -> dict:
+    """One run of ``prompts`` through engine ``e`` (with ``sampling``,
+    sampled): the kernels' launch counts (and the sharded form's calls)
+    are set to 0 just before and read just after, and
+    ``paged_flash_mq``'s must equal ``expect(stats)``, the count the
+    engine's code implies."""
     from repro_torch.kernels import int8_matmul as IK
     from repro_torch.kernels import paged_attention as PA
     e.stats = type(e.stats)()
@@ -1202,7 +1218,7 @@ def _timed(e, prompts, max_new, vocab, expect, what) -> dict:
     IK.int8_matmul_cuda.pack_launches = 0
     IK.pack_int8_weight_cuda.launches = 0
     t0 = time.perf_counter()
-    outs = e.generate(prompts, max_new_tokens=max_new)
+    outs = e.generate(prompts, max_new_tokens=max_new, sampling=sampling)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = PA.paged_flash_mq.launches
@@ -1317,9 +1333,11 @@ def phase_main_path(params, cfg) -> dict:
     # and state stay out of the tokens/s above
     for tag, key, e in (("main_path_profile", "collab", eng),
                         ("cloud_only_profile", "cloud", cloud)):
-        emit(tag, requests=n_req, max_new=max_new, **profile_window(
+        prof = profile_window(
             lambda: e.generate(prompts, max_new_tokens=max_new),
-            statistics.median(r["wall"] for r in runs[key])))
+            statistics.median(r["wall"] for r in runs[key]))
+        emit(tag, requests=n_req, max_new=max_new, **prof)
+        res.setdefault("profiles", {})[key] = prof
     # untimed: the serial decisions, for phase 6's divergence report
     with _CommittedDecisions(eng, "_cloud_decode") as dec:
         res["logged_outs"] = eng.generate(prompts, max_new_tokens=max_new)
@@ -1414,10 +1432,11 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
     emit("spec_path", **res)
     # as for the serial path, the profiler's window comes after the
     # timed runs
+    res["profile"] = profile_window(
+        lambda: eng.generate(prompts, max_new_tokens=max_new),
+        statistics.median(walls))
     emit("spec_path_profile", requests=n_req, max_new=max_new,
-         **profile_window(
-             lambda: eng.generate(prompts, max_new_tokens=max_new),
-             statistics.median(walls)))
+         **res["profile"])
     with _CommittedDecisions(eng, "_verify_impl") as dec:
         logged = eng.generate(prompts, max_new_tokens=max_new)
     emit("spec_divergence", **_divergence(
@@ -1503,7 +1522,272 @@ def _divergence(serial, serial_at, spec, spec_at) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the cloud tensor-parallel on the one card
+# Phase 7: sampled serving on the main path
+# ---------------------------------------------------------------------------
+
+
+SAMPLE_T, SAMPLE_P = 0.8, 0.9       # the sampled path's temperature, top-p
+# the phases only sampled traffic may enter (serve.phases, serve.spec)
+SAMPLED_PHASES = ("_cloud_prefill_sample_impl", "_cloud_decode_sample_impl",
+                  "_spec_draft_sample_impl", "_verify_sample_impl")
+
+
+class _Calls:
+    """While active, record the positional arguments of every call of
+    ``eng``'s methods ``names``."""
+
+    def __init__(self, eng, names):
+        self.eng, self.names = eng, names
+        self.args = {n: [] for n in names}
+
+    def __enter__(self):
+        for n in self.names:
+            def wrap(*a, _orig=getattr(self.eng, n), _n=n, **kw):
+                self.args[_n].append(a)
+                return _orig(*a, **kw)
+            setattr(self.eng, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            delattr(self.eng, n)
+
+
+def phase_sampling_ops(vocab: int) -> dict:
+    """Check 4 of the sampled path: the threefry keys, uniforms and
+    categorical draws of ``serve.sampling`` on CUDA tensors against the
+    CPU port's, bit for bit — 4,096 (seed, index, stream) triples and a
+    [16, vocab] draw — and their times on the card (graph-free, eager:
+    the engines call them so)."""
+    from repro_torch.serve import sampling as SS
+    rng = np.random.RandomState(0)
+    n = 4096
+    seeds = torch.tensor(rng.randint(0, 2 ** 31 - 1, n))
+    idx = torch.tensor(rng.randint(0, 1 << 20, n))
+    streams = torch.tensor(rng.randint(0, 4, n))
+    keys_c = torch.empty((n, 2), dtype=torch.int64)
+    keys_g = torch.empty((n, 2), dtype=torch.int64, device="cuda")
+    for st in range(4):
+        m = streams == st
+        keys_c[m] = SS.token_keys(seeds[m], idx[m], st)
+        keys_g[m.cuda()] = SS.token_keys(seeds[m].cuda(), idx[m].cuda(), st)
+    if not torch.equal(keys_g.cpu(), keys_c):
+        raise AssertionError("sampling: token_keys differ card vs CPU")
+    u_c, u_g = SS.uniform_rows(keys_c), SS.uniform_rows(keys_g)
+    if not torch.equal(u_g.cpu().view(torch.int32), u_c.view(torch.int32)):
+        raise AssertionError("sampling: uniform_rows differ card vs CPU")
+    logits = torch.tensor(rng.randn(16, vocab).astype(np.float32) * 3)
+    temps, top_ps = torch.full((16,), SAMPLE_T), torch.full((16,), SAMPLE_P)
+    p = SS.filtered_probs(logits, temps, top_ps)
+    d_c = SS.sample_rows(p, keys_c[:16])
+    p_g, k_g = p.cuda(), keys_g[:16]
+    d_g = SS.sample_rows(p_g, k_g)
+    if not torch.equal(d_g.cpu(), d_c):
+        raise AssertionError(f"sampling: sample_rows differ card vs CPU: "
+                             f"{d_g.cpu().tolist()} vs {d_c.tolist()}")
+    lg, tg, pg = logits.cuda(), temps.cuda(), top_ps.cuda()
+    res = dict(triples=n, vocab=vocab, rows=16, keys_equal=True,
+               uniforms_equal=True, draws_equal=True,
+               draws=d_c.tolist(),
+               token_keys_ms=cuda_ms(lambda: SS.token_keys(
+                   seeds.cuda(), idx.cuda(), SS.CLOUD)),
+               sample_rows_ms=cuda_ms(lambda: SS.sample_rows(p_g, k_g)),
+               filtered_probs_ms=cuda_ms(
+                   lambda: SS.filtered_probs(lg, tg, pg)),
+               filtered_probs_max_abs_err=float(
+                   (SS.filtered_probs(lg, tg, pg).cpu() - p).abs().max()))
+    emit("sampling_ops", **res)
+    return res
+
+
+def _wire_formula(st, rounds_n, *, n_req, plen, d_model, vocab, k):
+    """The wire bytes a sampled spec run owes, from the reference's
+    framing alone, as (greedy part, sampled part): each prefill call
+    ships its rows' int8 blobs (one byte an element, a scale and zero
+    point a row) and returns a token a row, a header each way; each
+    round ships a row's k int8 deltas and k-1 graded drafts and returns
+    a token and the accept mask a row, a header each way; and every
+    sampled row (all rows here) also ships its k-1 graded positions' f32
+    draft distributions."""
+    from repro_torch.serve.transport import _MSG_BYTES, _QP_BYTES, _TOK_BYTES
+    prefill = (n_req * (plen * d_model + _QP_BYTES + _TOK_BYTES)
+               + 2 * st.prefill_calls * _MSG_BYTES)
+    rounds = sum(n * (k * (d_model + _QP_BYTES) + (k - 1) * _TOK_BYTES)
+                 + _MSG_BYTES + n * (_TOK_BYTES + -(-k // 8)) + _MSG_BYTES
+                 for n in rounds_n)
+    return prefill + rounds, sum(n * (k - 1) * vocab * 4 for n in rounds_n)
+
+
+def phase_sampled_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
+    """The main path's engine, weights and traffic, sampled: every
+    request at ``temperature=0.8, top_p=0.9`` with seed = its index,
+    serially (k = 1) and with ``spec_k=4`` (rejection-sampled verify).
+    Each mode runs on two fresh engines, one timed run each (after a
+    warm-up); the second engine then gives a profile window.  B1's
+    launches must be the greedy paths' formulas: sampling adds no
+    attention.  Checks, each raising:
+
+    1. the two fresh engines draw identical streams;
+    2. a ``temperature=0`` run of the serial engine commits the main
+       path's greedy streams bit for bit, entering no sampled phase;
+    3. the serial and spec streams agree at output index 0 (both the
+       prefill's ``CLOUD`` draw);
+    4. ``phase_sampling_ops``: the card's keys, uniforms and draws equal
+       the CPU's;
+    5. wire bytes: the serial run's equal the greedy serial run's, the
+       spec run's equal ``_wire_formula`` over its rounds;
+    (6 is in ``phase_path_parity``: a lossless sampled stream, card
+    against CPU)."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve.engine import CollaborativeServingEngine
+    from repro_torch.serve.sampling import SamplingParams
+
+    ops = phase_sampling_ops(cfg.vocab)
+    n_req, plen, max_new, cut = 8, 128, 32, 14
+    channel = Channel.from_kbps(250.0, rtt_ms=20.0)
+    prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
+    samps = [SamplingParams(temperature=SAMPLE_T, top_p=SAMPLE_P, seed=i)
+             for i in range(n_req)]
+    n_layers = cfg.n_layers
+    out = {}
+    for tag, k, greedy in (("serial", 1, main_res), ("spec", 4, spec_res)):
+        runs, eng = [], None
+        for _ in range(2):
+            eng = None                 # one engine on the card at a time
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = CollaborativeServingEngine(
+                params, cfg, cut_layer=cut, channel=channel,
+                max_len=plen + max_new + 24, spec_k=k, device="cuda")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            n_cloud = eng.n_cloud
+            eng.generate(prompts[:1], max_new_tokens=2,
+                         sampling=samps[:1])                  # warm-up
+            torch.cuda.synchronize()
+            if k == 1:
+                def expect(st):
+                    return n_layers * (st.prefill_calls + st.decode_steps)
+            else:
+                def expect(st, n_cloud=n_cloud, k=k):
+                    return (st.prefill_calls * (n_layers + n_cloud)
+                            + st.spec_rounds * (k * n_layers + n_cloud))
+            with _Calls(eng, ("_round",) + SAMPLED_PHASES) as calls:
+                r = _timed(eng, prompts, max_new, cfg.vocab, expect,
+                           f"sampled {tag} path", sampling=samps)
+            st = r["stats"]
+            r["rounds_n"] = [len(a[2]) for a in calls.args["_round"]]
+            used = {n: len(calls.args[n]) for n in SAMPLED_PHASES}
+            del calls
+            want = ({"_cloud_prefill_sample_impl": st.prefill_calls,
+                     "_cloud_decode_sample_impl": st.decode_steps}
+                    if k == 1 else
+                    {"_cloud_prefill_sample_impl": st.prefill_calls,
+                     "_spec_draft_sample_impl": st.spec_rounds,
+                     "_verify_sample_impl": st.spec_rounds})
+            if any(used[n] != want.get(n, 0) for n in SAMPLED_PHASES):
+                raise AssertionError(f"sampled {tag} path: sampled phase "
+                                     f"calls {used}, expected {want}")
+            r.update(setup_s=setup_s, sampled_phase_calls=used,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            runs.append(r)
+        a, b = runs
+        if a["outs"] != b["outs"]:                                # check 1
+            raise AssertionError(f"sampled {tag} path: two fresh engines "
+                                 f"drew different streams")
+        for r in runs:                                            # check 5
+            st = r["stats"]
+            if k == 1:
+                want_bytes, q_bytes = main_res["transmitted_bytes"], 0
+            else:
+                if not st.spec_rounds == st.decode_steps == len(
+                        r["rounds_n"]):
+                    raise AssertionError(f"sampled spec path: "
+                                         f"{st.spec_rounds} rounds in "
+                                         f"{st.decode_steps} steps")
+                base, q_bytes = _wire_formula(
+                    st, r["rounds_n"], n_req=n_req, plen=plen,
+                    d_model=cfg.d_model, vocab=cfg.vocab, k=k)
+                want_bytes = base + q_bytes
+            if st.transmitted_bytes != want_bytes:
+                raise AssertionError(
+                    f"sampled {tag} path: {st.transmitted_bytes} wire "
+                    f"bytes, expected {want_bytes}")
+        st = a["stats"]
+        if k == 1:
+            with _Calls(eng, SAMPLED_PHASES) as calls:            # check 2
+                t0_outs = eng.generate(
+                    prompts, max_new_tokens=max_new,
+                    sampling=SamplingParams(temperature=0.0, seed=7))
+            entered = {n: len(v) for n, v in calls.args.items() if v}
+            del calls
+            if t0_outs != main_res["outs"] or entered:
+                raise AssertionError(
+                    f"sampled serial path: temperature=0 run differs from "
+                    f"the greedy main path or entered {entered}")
+        walls = [r["wall"] for r in runs]
+        n_tok = sum(len(o) for o in a["outs"])
+        res = dict(arch=cfg.name, layers=n_layers, cut=cut, spec_k=k,
+                   temperature=SAMPLE_T, top_p=SAMPLE_P, seeds=[0, n_req - 1],
+                   requests=n_req, slots=4, prompt_len=plen,
+                   max_new=max_new, reduced=None,
+                   setup_s=[r["setup_s"] for r in runs], tokens=n_tok,
+                   wall_s_reps=walls,
+                   tokens_per_s_reps=[n_tok / w for w in walls],
+                   tokens_per_s=n_tok / statistics.median(walls),
+                   greedy_tokens_per_s=greedy["tokens_per_s"],
+                   fresh_engines_identical=True,
+                   prefill_calls=st.prefill_calls,
+                   decode_steps=st.decode_steps, spec_rounds=st.spec_rounds,
+                   drafted_tokens=st.drafted_tokens,
+                   draft_hits=st.draft_hits,
+                   acceptance_rate=(st.acceptance_rate() if k > 1
+                                    else None),
+                   tokens_per_round=st.decode_tokens / max(st.decode_steps,
+                                                           1),
+                   tokens_per_slot_round=st.decode_tokens / max(
+                       sum(a["rounds_n"]), 1),
+                   launches=a["launches"], tc_launches=a["tc_launches"],
+                   split_launches=a["launches"] - a["tc_launches"],
+                   expected_launches=expect(st),
+                   sampled_phase_calls=a["sampled_phase_calls"],
+                   int8_matmul_launches=a["int8_matmul_launches"],
+                   transmitted_bytes=st.transmitted_bytes,
+                   channel_latency_s=st.channel_latency_s,
+                   expected_transmitted_bytes=want_bytes,
+                   greedy_transmitted_bytes=greedy["transmitted_bytes"],
+                   q_row_bytes=q_bytes,
+                   peak_mem_gb=max(r["peak_mem_gb"] for r in runs),
+                   first_output=a["outs"][0])
+        if k == 1:
+            res["temperature0_equals_greedy"] = True
+        emit("sampled_path", run=tag, **res)
+        # the profiler's window comes after the timed runs
+        prof = profile_window(
+            lambda: eng.generate(prompts, max_new_tokens=max_new,
+                                 sampling=samps),
+            statistics.median(walls), top=8 if k == 1 else 14)
+        gprof = greedy["profiles"]["collab"] if k == 1 else greedy["profile"]
+        prof["greedy_device_busy_s"] = gprof["device_busy_s"]
+        prof["device_busy_delta_s"] = (prof["device_busy_s"]
+                                       - gprof["device_busy_s"])
+        emit("sampled_path_profile", run=tag, requests=n_req,
+             max_new=max_new, **prof)
+        res.update(outs=a["outs"], profile=prof)
+        out[tag] = res
+        del eng, runs, a, b
+    torch.cuda.empty_cache()
+    if ([o[0] for o in out["serial"]["outs"]]                      # check 3
+            != [o[0] for o in out["spec"]["outs"]]):
+        raise AssertionError("sampled path: serial and spec streams differ "
+                             "at output index 0")
+    out["ops"] = ops
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the cloud tensor-parallel on the one card
 # ---------------------------------------------------------------------------
 
 
@@ -1625,7 +1909,7 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the same engine on the card and on the CPU
+# Phase 9: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1743,13 +2027,17 @@ def phase_path_parity() -> None:
     * the cloud tensor-parallel over ``make_serve_mesh(model=2)``: the
       card's lossless stream against the card's tp = 1 stream and the
       CPU's tp = 2 stream, up to near-ties; in the INT8 default the
-      ``spec_k=4`` stream equal to the serial one on each device."""
+      ``spec_k=4`` stream equal to the serial one on each device;
+    * sampled (check 6 of the sampled path): a lossless serial stream at
+      ``temperature=0.8, top_p=0.9``, seed = the prompt's index, on the
+      card identical to the CPU's."""
     import dataclasses
     from repro_torch.bridge import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve.engine import CollaborativeServingEngine
+    from repro_torch.serve.sampling import SamplingParams
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=2,
@@ -1760,10 +2048,14 @@ def phase_path_parity() -> None:
     prompts = [np.random.RandomState(5 + i).randint(0, cfg.vocab, n)
                .astype(np.int32) for i, n in enumerate((20, 17, 33, 9, 16))]
     lossless = dict(a_bits=None, edge_int8=False, cloud_int8=False)
+    samps = [SamplingParams(temperature=SAMPLE_T, top_p=SAMPLE_P, seed=i)
+             for i in range(len(prompts))]
     runs, logs = {}, {}
     for tag, dev, p, kw in (
             ("lossless", "cuda", p_gpu, lossless),
             ("lossless", "cpu", p_cpu, lossless),
+            ("lossless_sampled", "cuda", p_gpu, lossless),
+            ("lossless_sampled", "cpu", p_cpu, lossless),
             ("lossless_spec", "cuda", p_gpu, dict(lossless, spec_k=4)),
             ("int8", "cuda", p_gpu, {}), ("int8", "cpu", p_cpu, {}),
             ("int8_spec", "cuda", p_gpu, dict(spec_k=4)),
@@ -1778,8 +2070,10 @@ def phase_path_parity() -> None:
         eng = CollaborativeServingEngine(p, cfg, device=dev, cut_layer=0,
                                          max_len=64, **kw)
         with _Decisions() as d:
-            runs[tag, dev] = (eng.generate(prompts, max_new_tokens=8),
-                              eng.stats)
+            runs[tag, dev] = (eng.generate(
+                prompts, max_new_tokens=8,
+                sampling=samps if tag.endswith("_sampled") else None),
+                eng.stats)
         logs[tag, dev] = d.log
     cpu_serial = runs["lossless", "cpu"][0]
     checked = {tag: _near_ties(runs[tag, "cuda"][0], cpu_serial, prompts,
@@ -1795,6 +2089,12 @@ def phase_path_parity() -> None:
             if runs["int8_spec" + sfx, dev][0] != runs["int8" + sfx, dev][0]:
                 raise AssertionError(f"INT8 spec stream differs from the "
                                      f"serial one on {dev}{sfx}")
+    if runs["lossless_sampled", "cuda"][0] != runs["lossless_sampled",
+                                                    "cpu"][0]:
+        raise AssertionError(
+            f"lossless sampled streams differ card vs CPU: "
+            f"{runs['lossless_sampled', 'cuda'][0]} vs "
+            f"{runs['lossless_sampled', 'cpu'][0]}")
     div = _int8_divergence(logs["int8", "cuda"], logs["int8", "cpu"])
     card, cpu = runs["int8", "cuda"][0], runs["int8", "cpu"][0]
     emit("path_parity", arch=cfg.name, layers=cfg.n_layers,
@@ -1816,6 +2116,8 @@ def phase_path_parity() -> None:
          tp2_identical_to_cpu_tp2=tp2 == runs["lossless_tp2", "cpu"][0],
          tp2_near_ties_vs_cpu_tp2=checked["tp2_vs_cpu_tp2"],
          int8_tp2_spec_equals_serial=True,
+         sampled_identical=True,
+         sampled_first_output=runs["lossless_sampled", "cpu"][0][0],
          int8_tp2_equals_tp1={dev: runs["int8_tp2", dev][0]
                               == runs["int8", dev][0]
                               for dev in ("cuda", "cpu")})
@@ -1859,6 +2161,7 @@ def main(argv=None) -> int:
     phase_quantized_dense(params, cfg)
     main_res = phase_main_path(params, cfg)
     spec_res = phase_spec_path(params, cfg, main_res)
+    samp_res = phase_sampled_path(params, cfg, main_res, spec_res)
     tp_res = phase_tp_path(params, cfg, main_res, spec_res)
     del params
     torch.cuda.empty_cache()
@@ -1882,6 +2185,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/paged_attention.py:213",
         "launches": main_res["launches"],
         "spec_path_launches": spec_res["launches"],
+        "sampled_serial_launches": samp_res["serial"]["launches"],
+        "sampled_spec_launches": samp_res["spec"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres),
         "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -1894,6 +2199,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/paged_attention.py:213",
         "launches": main_res["tc_launches"],
         "spec_path_launches": spec_res["tc_launches"],
+        "sampled_serial_launches": samp_res["serial"]["tc_launches"],
+        "sampled_spec_launches": samp_res["spec"]["tc_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kres
                            if r["kernel_design"] == "tensor_core"),
         "ms": pre["kernel_ms"], "plain_ms": pre["plain_ms"],

@@ -9,9 +9,12 @@ shows it equals); ``--collaborative`` splits the stack at the
 (auto-tuned or given) block and runs the paper's INT8-edge / fp-cloud
 pipeline over a simulated wireless channel; ``--spec-k`` turns its
 decode into speculative draft/verify rounds (an int, or ``auto`` for
-the cost model's pick).  Runs on the CUDA card
-unless ``--device cpu`` is given.  Weights are random, from a seeded
-``torch.Generator``.
+the cost model's pick).  ``--temperature``/``--top-p``/``--sample-seed``
+sample instead of greedy decode (collaborative mode only): the verify
+becomes exact rejection sampling against the cloud distribution, and
+request i samples with seed ``sample-seed + i``, so every stream replays
+bit for bit.  Runs on the CUDA card unless ``--device cpu`` is given.
+Weights are random, from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.core.costmodel import (CLOUD_TITANXP_CLASS, Channel,
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import LMConfig, init_lm, make_graph
 from repro_torch.serve.engine import CollaborativeServingEngine, ServingEngine
+from repro_torch.serve.sampling import SamplingParams
 
 
 def auto_cut(cfg: LMConfig, channel: Channel, prompt_len: int):
@@ -57,6 +61,16 @@ def main(argv=None):
     ap.add_argument("--spec-k", default="1",
                     help="speculative draft length: an int, or 'auto' to "
                          "pick it from the channel with the cost model")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="decode temperature; 0 keeps the greedy path, >0 "
+                         "turns verify into exact rejection sampling "
+                         "against the cloud distribution")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus cutoff applied to the cloud "
+                         "distribution before sampling (1.0 = off)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base seed of the draws; request i samples with "
+                         "seed+i so outputs replay bit for bit")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the engines run (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0,
@@ -75,8 +89,19 @@ def main(argv=None):
     prompts = [rng.randint(0, cfg.vocab, args.prompt_len).astype(np.int32)
                for _ in range(args.requests)]
     max_len = args.prompt_len + args.max_new + 24
+    # temperature 0 stays on the greedy path (sampling=None)
+    sampling = None
+    if args.temperature > 0:
+        sampling = [SamplingParams(temperature=args.temperature,
+                                   top_p=args.top_p,
+                                   seed=args.sample_seed + i)
+                    for i in range(args.requests)]
 
     if not args.collaborative:
+        if sampling is not None:
+            raise SystemExit("--temperature>0 needs --collaborative: the "
+                             "rejection-sampling verify lives in the "
+                             "collaborative engine")
         eng = ServingEngine(params, cfg, max_batch=4, max_len=max_len,
                             device=dev)
         t0 = time.perf_counter()
@@ -98,8 +123,14 @@ def main(argv=None):
     eng = CollaborativeServingEngine(params, cfg, cut_layer=cut_layer,
                                      channel=channel, max_len=max_len,
                                      spec_k=spec_k, device=dev)
+    if sampling is not None:
+        print(f"sampling: temperature={args.temperature} "
+              f"top_p={args.top_p} seeds {args.sample_seed}.."
+              f"{args.sample_seed + args.requests - 1} "
+              f"(exact cloud distribution via rejection-sampled verify)")
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, max_new_tokens=args.max_new)
+    outs = eng.generate(prompts, max_new_tokens=args.max_new,
+                        sampling=sampling)
     dt = time.perf_counter() - t0
     print(f"collaborative: {dt:.2f}s, int8 wire bytes "
           f"{eng.stats.transmitted_bytes / 1e3:.1f}KB "

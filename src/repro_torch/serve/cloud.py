@@ -29,7 +29,9 @@ __all__ = ["ServingEngine"]
 
 
 class ServingEngine(_SlotEngine):
-    """Cloud-only batched engine (greedy decode, continuous batching)
+    """Cloud-only batched engine (greedy decode — a sampled request is
+    refused at admission, as the reference refuses it — continuous
+    batching)
     over a paged KV cache on ``device`` (default ``"cuda"``), or
     tensor-parallel over the shards of ``mesh``
     (``launch.mesh.make_serve_mesh``; its first device is the engine's
@@ -53,7 +55,11 @@ class ServingEngine(_SlotEngine):
             device=dev)
         place_cloud_engine(self)
 
-    def _admit(self, toks, plens, max_news, slots, cur, pos):
+    def _admit(self, toks, plens, max_news, slots, cur, pos, samplings=None):
+        if any(s is not None and s.sampled for s in (samplings or [])):
+            raise ValueError(
+                "cloud-only baseline is greedy; sampled serving lives in "
+                "CollaborativeServingEngine (serve.sampling)")
         bt_rows = self._pool.admit(slots, plens, max_news, toks.shape[1])
         slots_d = torch.as_tensor(slots, device=self.device).long()
         plens_d = torch.as_tensor(plens, device=self.device)

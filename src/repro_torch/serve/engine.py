@@ -1,14 +1,14 @@
 """Collaborative (cloud-edge) LM serving — the paper's mode — in PyTorch.
 
 Counterpart of ``repro.serve.engine.CollaborativeServingEngine`` at a
-fixed cut with greedy decode.  The INT8 edge prefix
+fixed cut.  The INT8 edge prefix
 (the first ``cut_layer + 1`` blocks on the fake-quant lattice) and the
 fp cloud suffix each own a paged KV cache covering only their block
 sub-range, over **one shared block table**.  Each prefill ships the
 prompt's per-row Eq.(1) boundary blob uplink; each decode step ships a
-per-row-quantized ``[B, 1, D]`` boundary delta uplink and the greedy
-token downlink, charged to ``ServeStats`` byte for byte as the JAX
-engine charges them.  ``spec_k = k > 1`` turns each decode step into a
+per-row-quantized ``[B, 1, D]`` boundary delta uplink and the token
+downlink, charged to ``ServeStats`` byte for byte as the JAX engine
+charges them.  ``spec_k = k > 1`` turns each decode step into a
 speculative draft/verify round (``serve.spec``); ``spec_k=1`` is the
 serial step, bit for bit, and ``spec_k="auto"`` takes the starting k from
 ``autotune.spec_k_for_lm``.  ``a_bits=None`` with fp pages on both sides
@@ -17,14 +17,18 @@ the cut.  ``mesh`` (``launch.mesh.make_serve_mesh``) runs the cloud
 suffix, its head and its page pool tensor-parallel over the mesh's
 ``model`` shards (``serve.sharding``); the edge half runs once, on the
 mesh's first device.  Wire bytes and ``ServeStats`` do not depend on the
-mesh.
+mesh.  A request with ``SamplingParams(temperature > 0)`` is sampled
+(``serve.sampling``): its prefill, serial steps and rounds run the
+``*_sample`` phases, and a sampled round also ships the graded
+positions' f32 draft distributions uplink; all-greedy traffic never
+enters a sampled phase.
 
 Options the slice does not run raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -128,6 +132,13 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self._bank = _CutBank(params, cfg, {cut_layer}, deploy_qctx,
                               drafts=spec_k > 1)
         self._set_cut(cut_layer)
+        # per-slot sampling state (serve.sampling): host mirrors of each
+        # slot's (temperature, top_p, seed), refreshed at admission; the
+        # device copies are cached until the slot mix changes
+        self._samp_t = np.zeros((max_batch,), np.float32)
+        self._samp_p = np.ones((max_batch,), np.float32)
+        self._samp_s = np.zeros((max_batch,), np.int64)
+        self._samp_dev: Optional[Tuple[torch.Tensor, ...]] = None
 
     def _set_cut(self, cut: int) -> None:
         """Partition at ``cut``: weights come out of the bank (views), the
@@ -172,8 +183,39 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         pages."""
         return max_news + self._round_headroom()
 
+    # -- sampling plumbing (serve.sampling) ---------------------------------
+    def _note_samplings(self, slots, samplings) -> None:
+        """Refresh the per-slot sampling mirrors at admission (a greedy
+        or ``None`` request zeroes its slot, so slot reuse never leaks a
+        previous request's temperature)."""
+        for i, s in enumerate(slots):
+            sp = None if samplings is None else samplings[i]
+            sp = sp if (sp is not None and sp.sampled) else None
+            self._samp_t[s] = sp.temperature if sp else 0.0
+            self._samp_p[s] = sp.top_p if sp else 1.0
+            self._samp_s[s] = sp.seed if sp else 0
+        self._samp_dev = None
+
+    def _samp_vecs(self) -> Tuple[torch.Tensor, ...]:
+        if self._samp_dev is None:
+            self._samp_dev = tuple(torch.as_tensor(v, device=self.device)
+                                   for v in (self._samp_t, self._samp_p,
+                                             self._samp_s))
+        return self._samp_dev
+
+    def _offsets(self) -> torch.Tensor:
+        """[max_batch] absolute output index each live slot's next round
+        starts at: its committed count, exact on the host (the scheduler
+        counts commits as rounds report them), so every sampled draw's
+        key is pinned to (seed, index, stream)."""
+        off = np.zeros((self.max_batch,), np.int64)
+        for s, (_r, c) in self._sched_active.items():
+            off[s] = c
+        return torch.as_tensor(off, device=self.device)
+
     # -- scheduler hooks ----------------------------------------------------
-    def _admit(self, toks, plens, max_news, slots, cur, pos):
+    def _admit(self, toks, plens, max_news, slots, cur, pos, samplings=None):
+        self._note_samplings(slots, samplings)
         bt_rows = self._pool.admit(slots, plens,
                                    self._admit_reserve(max_news),
                                    toks.shape[1])
@@ -185,10 +227,17 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self.transport.account_blob(
             self.stats, blob, phase="prefill",
             row_elems=plens.astype(np.int64) * self.cfg.d_model)
-        cur, pos = self._cloud_prefill(self.cloud_blocks, self.cloud_tail,
-                                       blob,
-                                       qp, self._cloud_cache, slots_d,
-                                       bt_rows, cur, pos, plens_d)
+        if (self._samp_t[slots] > 0).any():
+            cur, pos = self._cloud_prefill_sample_impl(
+                self.cloud_blocks, self.cloud_tail, blob, qp,
+                self._cloud_cache, slots_d, bt_rows, cur, pos, plens_d,
+                *(torch.as_tensor(v[slots], device=self.device)
+                  for v in (self._samp_t, self._samp_p, self._samp_s)))
+        else:
+            cur, pos = self._cloud_prefill(self.cloud_blocks,
+                                           self.cloud_tail, blob, qp,
+                                           self._cloud_cache, slots_d,
+                                           bt_rows, cur, pos, plens_d)
         if self.spec_k > 1:
             self._draft_prefill_impl(self.draft_blocks, blob, qp,
                                      self._draft_cache, slots_d, bt_rows,
@@ -198,36 +247,65 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         return cur, pos
 
     def _decode_all(self, cur, pos, n_active):
+        return self._serial_step(cur, pos, n_active, self._cloud_decode)
+
+    def _decode_all_sample(self, cur, pos, n_active):
+        """Serial (k = 1) step with a sampled slot aboard: the same edge
+        pass and wire bytes; the committed token is the ``CLOUD``-stream
+        draw (greedy rows keep their argmax, bit for bit)."""
+        samp = (*self._samp_vecs(), self._offsets())
+        return self._serial_step(
+            cur, pos, n_active,
+            lambda *a: self._cloud_decode_sample_impl(*a, *samp))
+
+    def _serial_step(self, cur, pos, n_active, cloud_step):
         bt = self._pool.table_dev()
         blob, qp = self._edge_decode(self.edge_blocks, self.embed, cur,
                                      self._edge_cache, pos, bt)
         self.transport.account_blob(self.stats, blob, phase="decode",
                                     rows=n_active)
-        cur, pos = self._cloud_decode(self.cloud_blocks, self.cloud_tail,
-                                      blob, qp, self._cloud_cache, pos, bt)
+        cur, pos = cloud_step(self.cloud_blocks, self.cloud_tail, blob, qp,
+                              self._cloud_cache, pos, bt)
         self.transport.account_downlink(self.stats, n_active)
         return cur, pos
 
     def _round(self, cur, pos, slots):
+        n_samp = int((self._samp_t[slots] > 0).sum())
         # k = 1 is the serial step, which never waits for the device
         if self.spec_k == 1:
-            return super()._round(cur, pos, slots)
+            if not n_samp:
+                return super()._round(cur, pos, slots)
+            cur, pos = self._decode_all_sample(cur, pos, len(slots))
+            return cur, pos, cur[:, None], None
         k, n_active = self.spec_k, len(slots)
         bt = self._pool.table_dev()
-        draft_fn, verify_fn = self._spec_fns(k)
-        blobs, scales, zps, drafts = draft_fn(
-            self.edge_blocks, self.draft_blocks, self.embed, self.tail, cur,
-            self._edge_cache, self._draft_cache, pos, bt)
+        args = (self.edge_blocks, self.draft_blocks, self.embed, self.tail,
+                cur, self._edge_cache, self._draft_cache, pos, bt)
+        if n_samp:
+            samp = (*self._samp_vecs(), self._offsets())
+            draft_fn, verify_fn = self._spec_sample_fns(k)
+            blobs, scales, zps, drafts, qs = draft_fn(*args, *samp)
+        else:
+            draft_fn, verify_fn = self._spec_fns(k)
+            blobs, scales, zps, drafts = draft_fn(*args)
         # one uplink message: k per-row-framed [1, D] deltas + the k-1
-        # graded drafts, the header (and the RTT) paid once per round
+        # graded drafts, the header (and the RTT) paid once per round; a
+        # sampled row also ships the k-1 graded positions' f32 draft
+        # distributions the rejection test needs
         self.transport.charge(
             self.stats,
             n_active * (k * (self.cfg.d_model * blobs.element_size()
                              + _QP_BYTES) + (k - 1) * _TOK_BYTES)
-            + _MSG_BYTES, phase="decode")
-        toks, n_commit, cur, pos = verify_fn(
-            self.cloud_blocks, self.cloud_tail, blobs, scales, zps, drafts,
-            self._cloud_cache, pos, bt)
+            + _MSG_BYTES + n_samp * (k - 1) * self.cfg.vocab * 4,
+            phase="decode")
+        vargs = (self.cloud_blocks, self.cloud_tail, blobs, scales, zps,
+                 drafts)
+        if n_samp:
+            toks, n_commit, cur, pos = verify_fn(
+                *vargs, qs, self._cloud_cache, pos, bt, *samp)
+        else:
+            toks, n_commit, cur, pos = verify_fn(
+                *vargs, self._cloud_cache, pos, bt)
         # the edge needs the accept counts to schedule the next round, so
         # this sync is part of the protocol, not a host-loop artifact
         counts = n_commit.cpu().numpy()

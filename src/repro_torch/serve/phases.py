@@ -1,13 +1,19 @@
 """The split-cache phases of collaborative serving: the Eq.(1)/(2)
 boundary lattice and the edge-prefix / cloud-suffix prefill and decode.
 
-Counterpart of ``repro.serve.phases._SplitPhases`` (greedy phases; the
-sampled variants come with the sampling slice).  Anything mixing it in
-provides ``cfg``, ``max_len``, ``a_bits``, ``edge_int8``/``cloud_int8``,
-``_edge_qctx`` and ``_rope()``.  Each phase updates its paged cache in
-place and returns the new per-slot state; the cloud phases take the
-engine's tensor-parallel blocks, head and shard caches as they come
-(``serve.sharding``).
+Counterpart of ``repro.serve.phases._SplitPhases``.  Anything mixing it
+in provides ``cfg``, ``max_len``, ``a_bits``, ``edge_int8``/
+``cloud_int8``, ``_edge_qctx`` and ``_rope()``.  Each phase updates its
+paged cache in place and returns the new per-slot state; the cloud
+phases take the engine's tensor-parallel blocks, head and shard caches
+as they come (``serve.sharding``), and see the whole vocabulary's
+logits (``transformer.lm_head`` concatenates a split head's shards).
+
+The ``*_sample_impl`` variants are the temperature > 0 cloud phases
+(``serve.sampling``): the same suffix math, but the emitted token is a
+seeded categorical draw from the row's filtered distribution.  Greedy
+rows (``temps <= 0``) in a mixed batch take the argmax of the same
+logits, so their streams equal the greedy phases' bit for bit.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from repro_torch.core.quant import (QuantParams, compute_qparams, dequantize,
                                     quantize)
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as TF
+from repro_torch.serve import sampling as S
 from repro_torch.serve.kvcache import _paged_prefill_merge, _paged_prefill_view
 
 __all__ = ["_SplitPhases"]
@@ -67,8 +74,10 @@ class _SplitPhases:
         ranged = torch.where(real, h, h[:, :1])
         return self._quant_boundary(h, ranged)
 
-    def _cloud_prefill(self, blocks, tail, blob, qp, cache, slots, bt_rows,
-                       cur, pos, plens):
+    def _cloud_prefill_body(self, blocks, tail, blob, qp, cache, slots,
+                            bt_rows, plens) -> torch.Tensor:
+        """Shared suffix prefill: fills the cloud cache and returns the
+        last-prompt-position logits the first token comes from."""
         cfg = self.cfg
         h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2)
         n = h.shape[0]
@@ -80,12 +89,46 @@ class _SplitPhases:
                                  kv_lengths=plens)
         _paged_prefill_merge(cache, group, slots)
         last = x[torch.arange(n, device=x.device), (plens - 1).long()]
-        logits = TF.lm_head(tail, last[:, None])[:, 0]
+        return TF.lm_head(tail, last[:, None])[:, 0]
+
+    @staticmethod
+    def _set_rows(cur, pos, slots, tok, plens):
         # fresh tensors: the scheduler keeps views of the previous ones
         cur, pos = cur.clone(), pos.clone()
-        cur[slots] = torch.argmax(logits, -1).to(torch.int32)
+        cur[slots] = tok
         pos[slots] = plens
         return cur, pos
+
+    def _cloud_prefill(self, blocks, tail, blob, qp, cache, slots, bt_rows,
+                       cur, pos, plens):
+        logits = self._cloud_prefill_body(blocks, tail, blob, qp, cache,
+                                          slots, bt_rows, plens)
+        return self._set_rows(cur, pos, slots,
+                              torch.argmax(logits, -1).to(torch.int32), plens)
+
+    def _cloud_prefill_sample_impl(self, blocks, tail, blob, qp, cache,
+                                   slots, bt_rows, cur, pos, plens, temps,
+                                   top_ps, seeds):
+        """Sampled prefill: the first token (absolute output index 0) is
+        a ``CLOUD``-stream draw from the filtered distribution; greedy
+        rows in the group keep the argmax.  ``temps``/``top_ps``/
+        ``seeds`` are group-row vectors aligned with ``slots``."""
+        logits = self._cloud_prefill_body(blocks, tail, blob, qp, cache,
+                                          slots, bt_rows, plens)
+        return self._set_rows(cur, pos, slots,
+                              self._sample_or_argmax(logits, temps, top_ps,
+                                                     seeds,
+                                                     torch.zeros_like(seeds)),
+                              plens)
+
+    @staticmethod
+    def _sample_or_argmax(logits, temps, top_ps, seeds, offsets):
+        """The ``CLOUD``-stream draw at output index ``offsets`` for
+        sampled rows, the argmax of the same logits for greedy rows."""
+        greedy = torch.argmax(logits, -1).to(torch.int32)
+        p = S.filtered_probs(logits.to(torch.float32), temps, top_ps)
+        draw = S.sample_rows(p, S.token_keys(seeds, offsets, S.CLOUD))
+        return torch.where(temps > 0.0, draw, greedy)
 
     def _edge_decode(self, blocks, embed, cur, cache, pos, bt):
         cfg = self.cfg
@@ -97,11 +140,26 @@ class _SplitPhases:
         # the range of live requests' deltas
         return self._quant_boundary(h)                     # [B, 1, D]
 
-    def _cloud_decode(self, blocks, tail, blob, qp, cache, pos, bt):
+    def _cloud_decode_logits(self, blocks, tail, blob, qp, cache, pos,
+                             bt) -> torch.Tensor:
         cfg = self.cfg
         h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2)
         x, _ = TF.run_blocks(blocks, h, cfg, rope=self._rope(), cache=cache,
                              cache_index=pos, block_tables=bt)
-        logits = TF.lm_head(tail, x)[:, 0]
+        return TF.lm_head(tail, x)[:, 0]
+
+    def _cloud_decode(self, blocks, tail, blob, qp, cache, pos, bt):
+        logits = self._cloud_decode_logits(blocks, tail, blob, qp, cache,
+                                           pos, bt)
         nxt = torch.argmax(logits, -1).to(torch.int32)
+        return nxt, torch.clamp(pos + 1, max=self.max_len - 1)
+
+    def _cloud_decode_sample_impl(self, blocks, tail, blob, qp, cache, pos,
+                                  bt, temps, top_ps, seeds, offsets):
+        """Sampled serial (k = 1) decode: the committed token at absolute
+        output index ``offsets[b]`` is a ``CLOUD``-stream draw — the
+        reference distribution the speculative verify must match."""
+        logits = self._cloud_decode_logits(blocks, tail, blob, qp, cache,
+                                           pos, bt)
+        nxt = self._sample_or_argmax(logits, temps, top_ps, seeds, offsets)
         return nxt, torch.clamp(pos + 1, max=self.max_len - 1)

@@ -14,8 +14,10 @@ tokens once, after the last round.
 The JAX reference jits each phase and donates the cache buffers; here
 each phase is a plain call and the cache tensors are updated in place,
 which is what donation achieves there.  CUDA graphs of the phases come
-in a later PR.  Priorities, deadlines, arrival times, preemption and
-the online policy hooks come with the overload and adaptive slices.
+in a later PR.  A request may carry ``SamplingParams`` (``serve.
+sampling``); the engine reads them at admission.  Priorities, deadlines,
+arrival times, preemption and the online policy hooks come with the
+overload and adaptive slices.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as TF
+from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.stats import ServeStats
 
 __all__ = ["Request", "_bucket_len", "_SlotEngine"]
@@ -47,14 +50,17 @@ class Request:
     max_new_tokens: int = 16
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # None or temperature=0 → the greedy path, bit for bit
+    sampling: Optional[SamplingParams] = None
 
 
 class _SlotEngine:
     """Continuous-batching scheduler base class.
 
     Subclasses implement ``_admit`` (prefill a prompt group into specific
-    slots) and ``_decode_all`` (advance every slot one token), and may
-    hook ``_round`` (a speculative round instead of one serial step),
+    slots, with each request's ``SamplingParams`` or ``None``) and
+    ``_decode_all`` (advance every slot one token), and may hook
+    ``_round`` (a speculative round instead of one serial step),
     ``_retire`` (a slot's request finished — return its KV pages) and
     ``_can_admit`` (admission backpressure from the page pool)."""
 
@@ -75,7 +81,8 @@ class _SlotEngine:
     # -- subclass interface -------------------------------------------------
     def _admit(self, toks: torch.Tensor, plens: np.ndarray,
                max_news: np.ndarray, slots: np.ndarray, cur: torch.Tensor,
-               pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               pos: torch.Tensor, samplings=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
     def _decode_all(self, cur: torch.Tensor, pos: torch.Tensor,
@@ -133,13 +140,17 @@ class _SlotEngine:
     # -- scheduler ----------------------------------------------------------
     def generate(self, prompts: List[np.ndarray], *, max_new_tokens: int = 16,
                  sampling=None) -> List[List[int]]:
-        """Greedy-decode a list of prompts with continuous batching."""
-        if sampling is not None:
-            raise NotImplementedError(
-                "sampled decode is not ported yet (ROADMAP A11)")
+        """Decode a list of prompts with continuous batching.
+        ``sampling`` is one ``SamplingParams`` for all prompts, or a
+        per-prompt list; ``None`` (default) is greedy."""
+        samps = (list(sampling) if isinstance(sampling, (list, tuple))
+                 else [sampling] * len(prompts))
+        if len(samps) != len(prompts):
+            raise ValueError(f"{len(samps)} sampling entries for "
+                             f"{len(prompts)} prompts")
         reqs = [Request(uid=i, prompt=np.asarray(p),
-                        max_new_tokens=max_new_tokens)
-                for i, p in enumerate(prompts)]
+                        max_new_tokens=max_new_tokens, sampling=s)
+                for i, (p, s) in enumerate(zip(prompts, samps))]
         if reqs:
             self._run(reqs)
         return [r.out_tokens for r in reqs]
@@ -203,10 +214,11 @@ class _SlotEngine:
                 slots_a = np.asarray(slots, np.int32)
                 toks_d = torch.tensor(toks, device=self.device)
                 cur, pos = self._admit(toks_d, plens, max_news, slots_a,
-                                       cur, pos)
+                                       cur, pos, samplings=[
+                                           r.sampling for r in group])
                 self.stats.prefill_calls += 1
                 self.stats.prefill_tokens += int(plens.sum())
-                # a request's first token is the prefill argmax
+                # a request's first token comes from the prefill
                 rounds.append((cur[:, None], [(r, s, 1)
                                               for r, s in zip(group, slots)]))
                 for r, s in zip(group, slots):

@@ -22,8 +22,16 @@ With ``spec_k = k > 1`` each decode step becomes a round:
 
 The JAX reference jits one ``lax.scan`` per k; here the k draft steps
 are a Python loop and every phase updates the paged caches in place.
-The sampled twins (rejection-sampling verify) come with ROADMAP A11, the
-edge-only degradation and resync phases with A12.
+
+Rounds carrying a temperature > 0 slot run the ``*_sample`` twins: the
+draft proposes seeded categorical draws from its filtered distribution
+``q`` and ships the graded positions' ``q`` rows beside the blob (priced
+as extra uplink by the engine), and the verify grades by **rejection
+sampling** (``serve.sampling.grade_and_correct``) instead of argmax
+match, keeping the cloud's sampling distribution exact while greedy
+rows in the same batch commit the greedy verify's tokens.  The
+edge-only degradation and resync phases, sampled or not, come with
+ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 from repro_torch.core.quant import dequantize
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as TF
+from repro_torch.serve import sampling as S
 from repro_torch.serve.kvcache import _paged_prefill_merge, _paged_prefill_view
 from repro_torch.serve.scheduler import _bucket_len
 
@@ -54,6 +63,13 @@ class _SpecDraftMixin:
         return (functools.partial(self._spec_draft_impl, k),
                 functools.partial(self._verify_impl, k))
 
+    def _spec_sample_fns(self, k: int):
+        """Sampled twin of ``_spec_fns``: the (draft, rejection-sampling
+        verify) pair for rounds carrying at least one temperature > 0
+        slot.  Greedy rows ride along on the argmax branch."""
+        return (functools.partial(self._spec_draft_sample_impl, k),
+                functools.partial(self._verify_sample_impl, k))
+
     def _draft_prefill_impl(self, blocks, blob, qp, cache, slots, bt_rows,
                             plens) -> None:
         """Fill the edge's draft cache: the INT8 suffix copy runs the same
@@ -69,19 +85,20 @@ class _SpecDraftMixin:
                                  kv_lengths=plens)
         _paged_prefill_merge(cache, group, slots)
 
-    def _spec_draft_impl(self, k, edge_blocks, draft_blocks, embed, tail,
-                         cur, e_cache, d_cache, pos, bt
-                         ) -> Tuple[torch.Tensor, ...]:
+    def _draft_steps(self, k, edge_blocks, draft_blocks, embed, tail, cur,
+                     e_cache, d_cache, pos, bt, pick
+                     ) -> Tuple[torch.Tensor, ...]:
         """k local steps on the edge: INT8 prefix → Eq.(1) delta → INT8
-        suffix copy → greedy draft token.  Returns the stacked ``[k, B,
-        D]`` boundary blob with per-(position, row) scales and zero
-        points ``[k, B]`` — the frames k serial steps would have shipped
-        — and the k draft tokens ``[k, B]``."""
+        suffix copy → ``pick(i, logits)``, the token drafted at step i.
+        Returns the stacked ``[k, B, D]`` boundary blob with
+        per-(position, row) scales and zero points ``[k, B]`` — the frames
+        k serial steps would have shipped — and the k draft tokens
+        ``[k, B]``."""
         cfg = self.cfg
         rope = self._rope()
         blobs, scales, zps, drafts = [], [], [], []
         tok, p = cur, pos
-        for _ in range(k):
+        for i in range(k):
             x = ML.embed(embed, tok[:, None]).to(cfg.dtype)
             h, _ = TF.run_blocks(edge_blocks, x, cfg, rope=rope,
                                  cache=e_cache, cache_index=p,
@@ -91,8 +108,7 @@ class _SpecDraftMixin:
             y, _ = TF.run_blocks(draft_blocks, hq, cfg, rope=rope,
                                  cache=d_cache, cache_index=p,
                                  qctx=self._edge_qctx, block_tables=bt)
-            logits = TF.lm_head(tail, y)[:, 0]
-            tok = torch.argmax(logits, -1).to(torch.int32)
+            tok = pick(i, TF.lm_head(tail, y)[:, 0])
             p = torch.clamp(p + 1, max=self.max_len - 1)
             blobs.append(blob[:, 0])
             scales.append(qp.scale)
@@ -101,28 +117,94 @@ class _SpecDraftMixin:
         return (torch.stack(blobs), torch.stack(scales), torch.stack(zps),
                 torch.stack(drafts))
 
-    def _verify_impl(self, k, blocks, tail, blobs, scales, zps, drafts,
-                     cache, pos, bt) -> Tuple[torch.Tensor, ...]:
-        """One multi-token cloud step over the k drafted positions with
-        longest-prefix acceptance: the round commits the cloud's greedy
-        tokens ``t_1..t_{j+1}`` where j is the number of leading drafts
-        that match them, so every round commits at least one exact
-        greedy token.  Returns ``(t [B, k], n_commit [B], new cur, new
-        pos)``; rejected positions roll back by the position alone."""
+    def _spec_draft_impl(self, k, edge_blocks, draft_blocks, embed, tail,
+                         cur, e_cache, d_cache, pos, bt
+                         ) -> Tuple[torch.Tensor, ...]:
+        """The greedy draft: each step drafts the argmax."""
+        return self._draft_steps(
+            k, edge_blocks, draft_blocks, embed, tail, cur, e_cache, d_cache,
+            pos, bt, lambda i, logits: torch.argmax(logits, -1).to(
+                torch.int32))
+
+    def _spec_draft_sample_impl(self, k, edge_blocks, draft_blocks, embed,
+                                tail, cur, e_cache, d_cache, pos, bt, temps,
+                                top_ps, seeds, offsets
+                                ) -> Tuple[torch.Tensor, ...]:
+        """The sampled draft: step i proposes a ``DRAFT``-stream draw from
+        the local suffix's filtered distribution ``q`` at absolute output
+        index ``offsets + i`` (greedy rows keep the argmax of the same
+        logits).  Returns ``_draft_steps``' tensors and the stacked
+        ``[k, B, V]`` f32 ``q`` rows the verify grades against."""
+        qs = []
+
+        def pick(i, logits):
+            greedy = torch.argmax(logits, -1).to(torch.int32)
+            q = S.filtered_probs(logits.to(torch.float32), temps, top_ps)
+            qs.append(q)
+            draw = S.sample_rows(q, S.token_keys(seeds, offsets + i,
+                                                 S.DRAFT))
+            return torch.where(temps > 0.0, draw, greedy)
+
+        out = self._draft_steps(k, edge_blocks, draft_blocks, embed, tail,
+                                cur, e_cache, d_cache, pos, bt, pick)
+        return (*out, torch.stack(qs))
+
+    def _verify_logits(self, blocks, tail, blobs, scales, zps, cache, pos,
+                       bt) -> torch.Tensor:
+        """One multi-token cloud step over the k drafted positions
+        (``paged_flash_mq`` at S = k): the ``[B, k, V]`` logits."""
         cfg = self.cfg
         # Eq.(2) per (position, row): the lattice the serial path ships
         h = (blobs.to(torch.float32) - zps[..., None]) * scales[..., None]
         h = h.transpose(0, 1).to(cfg.dtype)                  # [B, k, D]
         x, _ = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
                              cache=cache, cache_index=pos, block_tables=bt)
-        logits = TF.lm_head(tail, x)                          # [B, k, V]
+        return TF.lm_head(tail, x)
+
+    def _commit(self, toks, n_commit, pos) -> Tuple[torch.Tensor, ...]:
+        """``(toks, n_commit, new cur, new pos)`` of a graded round:
+        rejected positions roll back by the position alone."""
+        new_cur = torch.gather(toks, 1, (n_commit - 1)[:, None].long())[:, 0]
+        new_pos = torch.clamp(pos + n_commit, max=self.max_len - 1)
+        return (toks, n_commit.to(torch.int32), new_cur,
+                new_pos.to(torch.int32))
+
+    def _verify_impl(self, k, blocks, tail, blobs, scales, zps, drafts,
+                     cache, pos, bt) -> Tuple[torch.Tensor, ...]:
+        """Longest-prefix acceptance: the round commits the cloud's greedy
+        tokens ``t_1..t_{j+1}`` where j is the number of leading drafts
+        that match them, so every round commits at least one exact
+        greedy token.  Returns ``(t [B, k], n_commit [B], new cur, new
+        pos)``."""
+        logits = self._verify_logits(blocks, tail, blobs, scales, zps,
+                                     cache, pos, bt)          # [B, k, V]
         t = torch.argmax(logits, -1).to(torch.int32)          # [B, k]
         d = drafts.transpose(0, 1)                            # [B, k]
         ok = (d[:, :k - 1] == t[:, :k - 1]).to(torch.int32)
         n_commit = 1 + torch.cumprod(ok, dim=1).sum(dim=1)    # [B]
-        new_cur = torch.gather(t, 1, (n_commit - 1)[:, None].long())[:, 0]
-        new_pos = torch.clamp(pos + n_commit, max=self.max_len - 1)
-        return t, n_commit.to(torch.int32), new_cur, new_pos.to(torch.int32)
+        return self._commit(t, n_commit, pos)
+
+    def _verify_sample_impl(self, k, blocks, tail, blobs, scales, zps,
+                            drafts, qs, cache, pos, bt, temps, top_ps, seeds,
+                            offsets) -> Tuple[torch.Tensor, ...]:
+        """Rejection-sampling verify: the same multi-token cloud step,
+        graded by ``sampling.grade_and_correct`` — sampled rows accept
+        draft i with probability ``min(1, p_i(d) / q_i(d))`` and correct
+        from the normalized residual (or the bonus draw from ``p``),
+        greedy rows grade by argmax match and commit the greedy verify's
+        tokens.  Returns what ``_verify_impl`` returns."""
+        logits = self._verify_logits(blocks, tail, blobs, scales, zps,
+                                     cache, pos, bt)          # [B, k, V]
+        t = torch.argmax(logits, -1).to(torch.int32)          # [B, k]
+        B, _, V = logits.shape
+        p = S.filtered_probs(logits.to(torch.float32).reshape(B * k, V),
+                             torch.repeat_interleave(temps, k),
+                             torch.repeat_interleave(top_ps, k)
+                             ).reshape(B, k, V)
+        toks, n_commit = S.grade_and_correct(
+            p, qs.transpose(0, 1), drafts.transpose(0, 1), temps > 0.0, t,
+            seeds, offsets)
+        return self._commit(toks, n_commit, pos)
 
     def _draft_rebuild_impl(self, edge_blocks, draft_blocks, embed, toks,
                             d_cache, slots, bt_rows, plens) -> None:

@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel against its plain version (the
 paged-attention kernel also in its tensor-parallel form, one launch per
-shard), and the collaborative engine (serial, speculative, and with its
+shard), the collaborative engine (serial, speculative, and with its
 cloud tensor-parallel over two shards of the card) on CUDA against the
-same engine on the CPU.
+same engine on the CPU, and sampled serving on the card: threefry keys,
+uniforms and draws equal to the CPU's, sampled streams deterministic
+and equal to the CPU's, ``temperature=0`` equal to the greedy stream.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine with the card alone:
@@ -24,6 +26,7 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
+from repro_torch.serve import sampling as SS  # noqa: E402
 
 CFG = get_arch("deepseek-7b").smoke
 
@@ -298,6 +301,69 @@ def test_spec_engine_on_card_matches_cpu(cuda):
         cpu.generate(prompts, max_new_tokens=6)
     assert gpu.stats.draft_hits == cpu.stats.draft_hits
     assert gpu.stats.transmitted_bytes == cpu.stats.transmitted_bytes
+
+
+@pytest.mark.gpu
+def test_sampling_draws_on_card_equal_cpu(cuda):
+    """Threefry keys, random bits, uniforms and categorical draws at
+    deepseek-7b's vocabulary: the card's equal the CPU's bit for bit."""
+    rng = np.random.RandomState(0)
+    seeds = torch.tensor(rng.randint(0, 2 ** 31 - 1, 4096))
+    idx = torch.tensor(rng.randint(0, 1 << 20, 4096))
+    for stream in (SS.DRAFT, SS.ACCEPT, SS.RESID, SS.CLOUD):
+        kc = SS.token_keys(seeds, idx, stream)
+        kg = SS.token_keys(seeds.to(cuda), idx.to(cuda), stream)
+        assert torch.equal(kg.cpu(), kc)
+        assert torch.equal(SS.uniform_rows(kg).cpu().view(torch.int32),
+                           SS.uniform_rows(kc).view(torch.int32))
+    vocab = 102400
+    assert torch.equal(SS._random_bits(kg[:16], vocab).cpu(),
+                       SS._random_bits(kc[:16], vocab))
+    logits = torch.tensor(rng.randn(16, vocab).astype(np.float32) * 3)
+    p = SS.filtered_probs(logits, torch.full((16,), 0.8),
+                          torch.full((16,), 0.9))
+    assert torch.equal(SS.sample_rows(p.to(cuda), kg[:16]).cpu(),
+                       SS.sample_rows(p, kc[:16]))
+
+
+def _sampled_engine(params, device, k, **kw):
+    return TE.CollaborativeServingEngine(params, CFG, device=device,
+                                         cut_layer=0, max_len=48, spec_k=k,
+                                         **kw)
+
+
+_SAMPLED_PROMPTS = [np.random.RandomState(2).randint(0, CFG.vocab, n)
+                    .astype(np.int32) for n in (15, 17, 16, 31, 33, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_sampled_engine_on_card_is_deterministic(cuda, k):
+    """Two fresh INT8 engines on the card draw the same streams, and a
+    lossless one draws the CPU engine's."""
+    params = TT.init_lm(CFG, torch.Generator().manual_seed(0), device="cpu")
+    samps = [SS.SamplingParams(temperature=0.8, top_p=0.9, seed=i)
+             for i in range(len(_SAMPLED_PROMPTS))]
+    a, b = (_sampled_engine(params, "cuda", k).generate(
+        _SAMPLED_PROMPTS, max_new_tokens=6, sampling=samps)
+        for _ in range(2))
+    assert a == b
+    lossless = dict(a_bits=None, edge_int8=False, cloud_int8=False)
+    assert _sampled_engine(params, "cuda", k, **lossless).generate(
+        _SAMPLED_PROMPTS, max_new_tokens=6, sampling=samps) == \
+        _sampled_engine(params, "cpu", k, **lossless).generate(
+            _SAMPLED_PROMPTS, max_new_tokens=6, sampling=samps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_temperature0_on_card_is_the_greedy_stream(cuda, k):
+    params = TT.init_lm(CFG, torch.Generator().manual_seed(0), device="cpu")
+    eng = _sampled_engine(params, "cuda", k)
+    greedy = eng.generate(_SAMPLED_PROMPTS, max_new_tokens=6)
+    assert eng.generate(_SAMPLED_PROMPTS, max_new_tokens=6,
+                        sampling=SS.SamplingParams(temperature=0.0,
+                                                   seed=5)) == greedy
 
 
 def _int8_case(m, k, n, seed, per_channel):

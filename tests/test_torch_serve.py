@@ -40,6 +40,7 @@ from repro_torch.core.costmodel import Channel  # noqa: E402
 from repro_torch.launch import serve as TLS  # noqa: E402
 from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
+from repro_torch.serve.sampling import SamplingParams  # noqa: E402
 
 CFG = get_arch("deepseek-7b").smoke
 TCFG = t_get_arch("deepseek-7b").smoke
@@ -198,9 +199,10 @@ def test_cli_runs_collaborative_on_cpu(capsys):
 
 
 def test_unported_options_raise(params):
-    """Only the options still unported raise (``spec_k > 1`` and ``mesh``
-    are ported; their parity tests are in ``test_torch_spec.py`` and
-    ``test_torch_sharded.py``; a mesh with a data axis is not)."""
+    """Only the options still unported raise (``spec_k > 1``, ``mesh`` and
+    ``sampling=`` are ported; their parity tests are in
+    ``test_torch_spec.py``, ``test_torch_sharded.py`` and
+    ``test_torch_sampling.py``; a mesh with a data axis is not)."""
     _, tp = params
     for kw, item in ((dict(policy="auto"), "A12"),
                      (dict(demand_paged=True), "A12"),
@@ -213,5 +215,5 @@ def test_unported_options_raise(params):
     eng = TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0, spec_k=2,
                                         device="cpu")
     assert eng.spec_k == 2
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.generate(_prompts(0)[:1], max_new_tokens=2, sampling=object())
+    assert len(eng.generate(_prompts(0)[:1], max_new_tokens=2,
+                            sampling=SamplingParams(temperature=0.8))[0]) == 2
