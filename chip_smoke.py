@@ -90,8 +90,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     CPU's tp = 2 up to near-ties, and the INT8
                     ``spec_k=4`` stream equal to the serial one on each
                     device.
+10. ``cnn_path`` — the paper's own CNN split inference (``core.collab``):
+                    AlexNet, VGG16 and GoogLeNet at full width and the
+                    paper's resolutions, seeded random weights; at every
+                    candidate cut a calibrated INT8-edge / fp32-cloud
+                    engine: edge and cloud ms and images/s at batch 1
+                    and 32, blob bytes (asserted against the graph),
+                    int8 download, fp32 error; Algorithm 1's Table 3
+                    picks (asserted: the JAX package's); AlexNet
+                    ``conv5`` and GoogLeNet ``conv2`` card against CPU
+                    (fp32 output, teacher-forced boundary lattice, INT8
+                    output; the end-to-end lattice reported).
+                    No kernel is on this path (launches read: 0).
 
-Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
+Then a ``{"kernels": [...]}`` summary line (each row with its
+``cnn_path_launches``), the ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
 device is present or the repository's ``src/`` is missing.
@@ -122,6 +135,11 @@ TC_PRODUCTS = {torch.int8: 2, torch.bfloat16: 2, torch.float32: 3}
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 KERNEL_TOL = 1e-4                  # |kernel - plain| / max|plain|
 INT8_RTOL, INT8_ATOL = 1e-5, 1e-4  # the JAX suite's f32 epilogue tolerance
+# Algorithm 1's pick on each of the paper's CNNs at its Table 3 bandwidth
+# (KB/s), as the JAX package computes it (tests/test_torch_legacy.py
+# holds these against it); the paper's own cuts are conv5, conv1_2, conv2
+TABLE3_PICKS = {"alexnet": (250, "conv1"), "vgg16": (240, "input"),
+                "googlenet": (180, "fc")}
 
 
 _START = time.perf_counter()
@@ -1199,15 +1217,11 @@ def _prompts(n, plen, vocab, seed):
     return [rng.randint(0, vocab, plen).astype(np.int32) for _ in range(n)]
 
 
-def _timed(e, prompts, max_new, vocab, expect, what, sampling=None) -> dict:
-    """One run of ``prompts`` through engine ``e`` (with ``sampling``,
-    sampled): the kernels' launch counts (and the sharded form's calls)
-    are set to 0 just before and read just after, and
-    ``paged_flash_mq``'s must equal ``expect(stats)``, the count the
-    engine's code implies."""
+def _reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count (and the sharded form's calls)
+    to 0."""
     from repro_torch.kernels import int8_matmul as IK
     from repro_torch.kernels import paged_attention as PA
-    e.stats = type(e.stats)()
     PA.paged_flash_mq.launches = 0
     PA.paged_flash_mq.tc_launches = 0
     PA.paged_flash_mq_sharded.calls = 0
@@ -1217,6 +1231,31 @@ def _timed(e, prompts, max_new, vocab, expect, what, sampling=None) -> dict:
     IK.int8_matmul_cuda.wgmma_launches = 0
     IK.int8_matmul_cuda.pack_launches = 0
     IK.pack_int8_weight_cuda.launches = 0
+
+
+def _launch_counts() -> dict:
+    """Each summary row's launch count, by the row's kernel name."""
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import paged_attention as PA
+    return {"paged_flash_mq": PA.paged_flash_mq.launches,
+            "paged_flash_mq_tc": PA.paged_flash_mq.tc_launches,
+            "paged_flash_mq_sharded": PA.paged_flash_mq_sharded.launches,
+            "int8_matmul": IK.int8_matmul_cuda.launches,
+            "int8_matmul_wgmma": IK.int8_matmul_cuda.wgmma_launches,
+            "int8_pack_weight": IK.pack_int8_weight_cuda.launches,
+            "int8_matmul_splitk": IK.int8_matmul_cuda.splitk_launches}
+
+
+def _timed(e, prompts, max_new, vocab, expect, what, sampling=None) -> dict:
+    """One run of ``prompts`` through engine ``e`` (with ``sampling``,
+    sampled): the kernels' launch counts (and the sharded form's calls)
+    are set to 0 just before and read just after, and
+    ``paged_flash_mq``'s must equal ``expect(stats)``, the count the
+    engine's code implies."""
+    from repro_torch.kernels import int8_matmul as IK
+    from repro_torch.kernels import paged_attention as PA
+    e.stats = type(e.stats)()
+    _reset_launch_counts()
     t0 = time.perf_counter()
     outs = e.generate(prompts, max_new_tokens=max_new, sampling=sampling)
     torch.cuda.synchronize()
@@ -2123,12 +2162,212 @@ def phase_path_parity() -> None:
                               for dev in ("cuda", "cpu")})
 
 
+# the cnn_path's card-against-CPU check (cuDNN and oneDNN sum a conv in
+# other orders): fp32 outputs within CNN_F32_TOL of max |CPU| (TF32 would
+# be ~1e-3 off); the boundary lattice of the same input to the last edge
+# segment at most one step apart on at most CNN_LATTICE_SHARE of its
+# elements; the INT8 outputs within relative L2 CNN_INT8_TOL.  End to
+# end the edges' lattices are reported, not bounded: each static lattice
+# passes a flipped step on (AlexNet conv5: two steps apart on the card)
+CNN_F32_TOL = 1e-4
+CNN_LATTICE_SHARE = 0.05
+CNN_INT8_TOL = 0.05
+CNN_NETS = (("alexnet", "conv5"), ("vgg16", None),
+            ("googlenet", "conv2"))          # net, card-vs-CPU cut
+CNN_REPEATS = 5
+
+
+def _cnn_images(batch, res, seed, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((batch, res, res, 3), generator=g, device=device)
+
+
+def _cnn_cut_row(eng, cand, x1, x32, truth) -> dict:
+    """One engine at one cut: median edge / cloud wall and images/s over
+    ``CNN_REPEATS`` runs at batch 1 and 32 (after one warm run each), the
+    blob bytes checked against the graph's boundary, the fp32 error."""
+    row = {"cut": eng.cut, "edge_download_bytes": eng.edge_download_bytes,
+           "storage_reduction": eng.storage_reduction}
+    elems = cand.blobs[0].elems                  # the graph's, at batch 1
+    for x in (x1, x32):
+        b = x.shape[0]
+        eng.infer(x)
+        recs = []
+        for _ in range(CNN_REPEATS):
+            y, rec = eng.infer(x)
+            recs.append(rec)
+        want = (b * elems * 4 if eng.cut == "input"
+                else b * elems + 8)              # Eq.(1) frame: 8 B
+        if rec.blob_bytes != want:
+            raise AssertionError(f"{eng.model.name} {eng.cut} batch {b}: "
+                                 f"{rec.blob_bytes} blob bytes, expected "
+                                 f"{want}")
+        edge = statistics.median(r.edge_wall_s for r in recs)
+        cloud = statistics.median(r.cloud_wall_s for r in recs)
+        total = statistics.median(r.edge_wall_s + r.cloud_wall_s
+                                  for r in recs)
+        row[f"b{b}"] = {"edge_ms": edge * 1e3, "cloud_ms": cloud * 1e3,
+                        "images_per_s": b / total,
+                        "blob_bytes": rec.blob_bytes,
+                        "precision": rec.precision}
+        if b == 1:
+            rel = float(torch.linalg.norm(y - truth)
+                        / torch.linalg.norm(truth))
+            if not math.isfinite(rel) or (eng.cut == "input"
+                                          and rel >= 1e-6):
+                raise AssertionError(f"{eng.model.name} {eng.cut}: fp32 "
+                                     f"relative error {rel}")
+            row["rel_err_vs_fp32"] = rel
+    return row
+
+
+def _steps(a: torch.Tensor, b: torch.Tensor) -> dict:
+    d = (a.cpu().to(torch.int32) - b.cpu().to(torch.int32)).abs()
+    return {"max_step": int(d.max()), "share": float((d > 0).float().mean()),
+            "elems": d.numel()}
+
+
+def _cnn_card_vs_cpu(model, cut, calib, x) -> dict:
+    """The same weights, calibration batches and images through the port
+    on the card and on the CPU at ``cut``, each device calibrating its
+    own engine: the fp32 model's output; the boundary lattice end to end
+    (reported) and with the last edge segment fed the card's own input
+    to it on both devices (teacher-forced, bounded); the INT8 output."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.core.collab import (CollaborativeEngine, Segment,
+                                         SegmentedModel)
+    cpu_model = SegmentedModel(model.name, model.graph, [
+        Segment(s.name, s.apply, tree_map(lambda t: t.cpu(), s.params))
+        for s in model.segments])
+    with torch.no_grad():
+        y_gpu = model.full_apply(x).cpu()
+        y_cpu = cpu_model.full_apply(x.cpu())
+        f32_err = float((y_gpu - y_cpu).abs().max() / y_cpu.abs().max())
+        g, c = (CollaborativeEngine(m, cut, device=dev, calib_batches=[
+            b.to(dev) for b in calib])
+            for m, dev in ((model, "cuda"), (cpu_model, "cpu")))
+        end_to_end = _steps(g.boundary(g.edge_forward(x))[0],
+                            c.boundary(c.edge_forward(x.cpu()))[0])
+        h = g.last_edge_input(x)
+        forced = _steps(g.forced_boundary(h)[0], c.forced_boundary(h)[0])
+        y_g, y_c = g.infer(x)[0].cpu(), c.infer(x.cpu())[0]
+    int8_rel = float(torch.linalg.norm(y_g - y_c) / torch.linalg.norm(y_c))
+    scale_rel = max(float(abs(g.act_scales[k].scale.cpu() - qp.scale)
+                          / qp.scale) for k, qp in c.act_scales.items())
+    res = {"cut": cut, "f32_max_err": f32_err, "f32_tol": CNN_F32_TOL,
+           "teacher_forced_lattice": forced,
+           "lattice_share_tol": CNN_LATTICE_SHARE,
+           "end_to_end_lattice": end_to_end,
+           "int8_rel_l2": int8_rel, "int8_tol": CNN_INT8_TOL,
+           "act_scale_max_rel_diff": scale_rel}
+    if not (f32_err <= CNN_F32_TOL and forced["max_step"] <= 1
+            and forced["share"] <= CNN_LATTICE_SHARE
+            and int8_rel <= CNN_INT8_TOL):
+        raise AssertionError(f"{model.name} card vs CPU: {res}")
+    return res
+
+
+def phase_cnn_path() -> dict:
+    """The paper's own CNN split inference (``core.collab``) on the card:
+    AlexNet (227²), VGG16 and GoogLeNet (224²), at each config's
+    ``img_res``, full width, seeded random weights built on the card by
+    the port's ``init_*``.  At every
+    candidate cut a ``CollaborativeEngine`` calibrated on 4 seeded
+    batches of 8: edge / cloud ms and images/s at batch 1 and 32 (median
+    of ``CNN_REPEATS``), blob bytes (asserted: the graph's boundary
+    elements + 8, or 4 B an element at ``input``), the int8 download
+    and storage reduction, the fp32 relative error against
+    ``full_apply`` (finite; < 1e-6 at ``input``); a ``torch.profiler``
+    window at batch 32 at ``input`` and at the last cut (all on the
+    edge): device busy time and idle share.  Algorithm 1 on the
+    port's graphs at the Table 3 bandwidths must pick ``TABLE3_PICKS``.
+    AlexNet at ``conv5`` and GoogLeNet at ``conv2``, card against CPU
+    (``_cnn_card_vs_cpu``, on 8 seeded images).  TF32 is switched on for
+    the whole phase and must be on again after it: the path's convs and
+    denses keep their f32 products true f32 within their own calls.
+    Kernel launch counts are set to 0 before and returned after, by
+    summary row (no kernel is on this path)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.autotune import AutoTuner
+    from repro_torch.core.collab import CollaborativeEngine
+    from repro_torch.core.costmodel import (CLOUD_TITANXP_CLASS, Channel,
+                                            EDGE_TX2_CLASS)
+    from repro_torch.core.partition import candidate_partition_points
+    from repro_torch.models import legacy
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    _reset_launch_counts()
+    try:
+        for net, parity_cut in CNN_NETS:
+            t0 = time.perf_counter()
+            res = get_arch(net).full.img_res
+            params = getattr(legacy, f"init_{net}")(
+                torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+            model = getattr(legacy, f"{net}_segments")(params)
+            model.verify_alignment()
+            cands = {c.name: c for c in candidate_partition_points(
+                model.graph)}
+            calib = [_cnn_images(8, res, 100 + i) for i in range(4)]
+            x1, x32 = _cnn_images(1, res, 1), _cnn_images(32, res, 2)
+            with torch.no_grad():
+                truth = model.full_apply(x1)
+            rows, profiles = [], {}
+            names = model.candidate_names()
+            for cut in names:
+                eng = CollaborativeEngine(model, cut, calib_batches=calib,
+                                          device="cuda")
+                rows.append(_cnn_cut_row(eng, cands[cut], x1, x32, truth))
+                if cut in ("input", names[-1]):
+                    # cloud-only, and everything on the INT8 edge
+                    prof = profile_window(
+                        lambda: eng.infer(x32),
+                        32 / rows[-1]["b32"]["images_per_s"], top=5)
+                    profiles[cut] = {k: prof[k] for k in (
+                        "device_busy_s", "device_idle_share",
+                        "device_events", "unprofiled_wall_s",
+                        "profiled_wall_s", "top")}
+            kbps, pick = TABLE3_PICKS[net]
+            best, _ = AutoTuner(model.graph, EDGE_TX2_CLASS,
+                                CLOUD_TITANXP_CLASS).tune(
+                Channel.from_kbps(kbps))
+            if best.point != pick:
+                raise AssertionError(f"{net}: Algorithm 1 picks "
+                                     f"{best.point} at {kbps} KB/s, the "
+                                     f"JAX package {pick}")
+            parity = (_cnn_card_vs_cpu(model, parity_cut, calib,
+                                       _cnn_images(8, res, 3))
+                      if parity_cut else None)
+            torch.cuda.synchronize()
+            emit("cnn_path", net=net, img_res=res,
+                 params=model.graph.total_param_elems(),
+                 gflops_b1=model.graph.total_flops() / 1e9,
+                 n_cuts=len(rows), repeats=CNN_REPEATS,
+                 algorithm1={"kbps": kbps, "pick": best.point,
+                             "jax_pick": pick},
+                 card_vs_cpu=parity, cuts=rows, profiles_b32=profiles,
+                 seconds=time.perf_counter() - t0)
+            del params, model
+            torch.cuda.empty_cache()
+        if (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) != (True, True):
+            raise AssertionError("the CNN path left TF32 switched off")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    return _launch_counts()
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels",),
-                    help="stop after the kernels phase (a quick check of a "
-                         "kernel change); prints no result line")
+    ap.add_argument("--only", choices=("kernels", "cnn_path"),
+                    help="run only the kernel phases (a quick check of a "
+                         "kernel change) or only the CNN path; prints no "
+                         "result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2140,6 +2379,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(src))
     smi = phase_device()
+    if args.only == "cnn_path":
+        phase_cnn_path()
+        return 0
     phase_build()
     kres = phase_kernels()
     sres = phase_sharded_kernels()
@@ -2166,6 +2408,7 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     phase_path_parity()
+    cnn_launches = phase_cnn_path()
     # each summary row is the kernel's main-path shape: the decode step
     # of 4 slots (int8_matmul_splitk: gate/up at M = 4; int8_matmul, the
     # front door, and int8_matmul_wgmma, its kernel above 32 rows:
@@ -2179,7 +2422,7 @@ def main(argv=None) -> int:
     mm = next(r for r in ires if r["shape"] == "int8mm_m512_4096x11008")
     sk = next(r for r in ires if r["shape"] == "int8mm_m4_4096x11008")
     pk = next(r for r in pres if r["shape"] == "pack_4096x11008")
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "paged_flash_mq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:213",
@@ -2278,7 +2521,10 @@ def main(argv=None) -> int:
         "library_ms": None, "prev_ms": sk["prev_ms"],
         "int_mm_ms": sk["int_mm_ms"], "int_mm_tn_ms": sk["int_mm_tn_ms"],
         "cluster": sk["cluster"], "slice_k": sk["slice_k"],
-        "shape": sk["shape"]}]}), flush=True)
+        "shape": sk["shape"]}]
+    for r in rows:        # the CNN path runs no kernel: its counts, read
+        r["cnn_path_launches"] = cnn_launches[r["name"]]
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

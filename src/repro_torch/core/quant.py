@@ -13,18 +13,21 @@ like ``jnp.round``, and every intermediate keeps the dtype the JAX code
 gives it (a bf16 input keeps its thresholds in bf16 until the final
 cast, exactly as JAX's weak-typed scalars do).
 
-Only the forward path the serving slice runs is here; the
-straight-through gradient and the calibrators come with training.
+Also here: the min/max calibrator (the paper's off-line profiling step)
+and the parameter-tree helpers of the edge's INT8 model download.  The
+straight-through gradient and the percentile and EMA calibrators come
+with training.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
 __all__ = ["QuantParams", "compute_qparams", "quantize", "dequantize",
-           "fake_quant"]
+           "fake_quant", "MinMaxCalibrator", "quantize_pytree",
+           "dequantize_pytree", "pytree_quant_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +88,16 @@ def _minmax_to_qparams(t_min: torch.Tensor, t_max: torch.Tensor, *,
                        axis=axis, bits=bits, signed=signed)
 
 
+def _reduce_minmax(x: torch.Tensor, axis: Optional[int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if axis is None:
+        return torch.amin(x), torch.amax(x)
+    red = tuple(d for d in range(x.ndim) if d != axis)
+    if not red:
+        return x, x
+    return torch.amin(x, dim=red), torch.amax(x, dim=red)
+
+
 def compute_qparams(x: torch.Tensor, *, axis: Optional[int] = None,
                     bits: int = 8, signed: bool = True,
                     symmetric: bool = False) -> QuantParams:
@@ -93,14 +106,7 @@ def compute_qparams(x: torch.Tensor, *, axis: Optional[int] = None,
     The reduced dims are ``range(x.ndim)`` minus ``axis`` exactly as in
     the JAX reference, so a negative ``axis`` reduces every dim there
     too (one range for the tensor) and the lattices stay identical."""
-    if axis is None:
-        t_min, t_max = torch.amin(x), torch.amax(x)
-    else:
-        red = tuple(d for d in range(x.ndim) if d != axis)
-        if red:
-            t_min, t_max = torch.amin(x, dim=red), torch.amax(x, dim=red)
-        else:
-            t_min, t_max = x, x
+    t_min, t_max = _reduce_minmax(x, axis)
     if symmetric:
         amax = torch.maximum(torch.abs(t_min), torch.abs(t_max))
         t_min, t_max = -amax, amax
@@ -132,3 +138,94 @@ def fake_quant(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     q = torch.clamp(torch.round(x / scale + zp), float(qp.qmin),
                     float(qp.qmax))
     return (q - zp) * scale
+
+
+class MinMaxCalibrator:
+    """Running global min/max over observed batches (paper Step 1, run
+    off-line over calibration batches)."""
+
+    def __init__(self, *, axis: Optional[int] = None, bits: int = 8,
+                 signed: bool = True, symmetric: bool = False):
+        self.axis, self.bits, self.signed = axis, bits, signed
+        self.symmetric = symmetric
+        self._min: Optional[torch.Tensor] = None
+        self._max: Optional[torch.Tensor] = None
+
+    def observe(self, x: torch.Tensor) -> None:
+        lo, hi = _reduce_minmax(x, self.axis)
+        if self._min is None:
+            self._min, self._max = lo, hi
+        else:
+            self._min = torch.minimum(self._min, lo)
+            self._max = torch.maximum(self._max, hi)
+
+    def qparams(self) -> QuantParams:
+        if self._min is None:
+            raise RuntimeError("observe() at least one batch first")
+        t_min, t_max = self._min, self._max
+        if self.symmetric:
+            amax = torch.maximum(torch.abs(t_min), torch.abs(t_max))
+            t_min, t_max = -amax, amax
+        return _minmax_to_qparams(t_min, t_max, bits=self.bits,
+                                  signed=self.signed, axis=self.axis)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (nested dicts and lists of tensors) — the edge engine's
+# model download is the quantized tree (the paper's "model storage
+# reduction").
+# ---------------------------------------------------------------------------
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def quantize_pytree(params: Any, *, bits: int = 8, signed: bool = True,
+                    per_channel: bool = True,
+                    symmetric_weights: bool = False) -> Tuple[Any, Any]:
+    """Quantize every float leaf → (q_tree, qp_tree).  A rank ≥ 2 leaf
+    is quantized per channel along its last (output-feature) axis, a
+    bias per tensor; a non-float leaf passes through with ``None``."""
+    kw = dict(bits=bits, signed=signed, per_channel=per_channel,
+              symmetric_weights=symmetric_weights)
+    if isinstance(params, dict):
+        pairs = {k: quantize_pytree(v, **kw) for k, v in params.items()}
+        return ({k: q for k, (q, _) in pairs.items()},
+                {k: qp for k, (_, qp) in pairs.items()})
+    if isinstance(params, (list, tuple)):
+        pairs = [quantize_pytree(v, **kw) for v in params]
+        return (type(params)(q for q, _ in pairs),
+                type(params)(qp for _, qp in pairs))
+    if not params.is_floating_point():
+        return params, None
+    axis = params.ndim - 1 if per_channel and params.ndim >= 2 else None
+    qp = compute_qparams(params, axis=axis, bits=bits, signed=signed,
+                         symmetric=symmetric_weights)
+    return quantize(params, qp), qp
+
+
+def dequantize_pytree(q_tree: Any, qp_tree: Any) -> Any:
+    """Inverse of ``quantize_pytree``: lattice leaves → f32 (Eq. 2)."""
+    if isinstance(q_tree, dict):
+        return {k: dequantize_pytree(v, qp_tree[k])
+                for k, v in q_tree.items()}
+    if isinstance(q_tree, (list, tuple)):
+        return type(q_tree)(dequantize_pytree(v, qp)
+                            for v, qp in zip(q_tree, qp_tree))
+    return q_tree if qp_tree is None else dequantize(q_tree, qp_tree)
+
+
+def pytree_quant_bytes(params: Any, *, bits: int = 8) -> Tuple[int, int]:
+    """(fp32 bytes, quantized bytes incl. 8 B of scale/zero point per
+    leaf)."""
+    fp = qb = 0
+    for leaf in _tree_leaves(params):
+        n = leaf.numel()
+        fp += n * 4
+        qb += (n * bits + 7) // 8 + 8
+    return fp, qb

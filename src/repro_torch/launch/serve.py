@@ -80,6 +80,9 @@ def main(argv=None):
     spec_k = args.spec_k if args.spec_k == "auto" else int(args.spec_k)
     dev = resolve_device(args.device)
     spec = get_arch(args.arch)
+    if spec.family != "lm":
+        raise SystemExit(f"{args.arch} is a {spec.family} arch; the serving "
+                         f"launcher targets the LM family")
     cfg = spec.smoke if args.smoke else spec.full
     print(f"serving {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab} on {dev}")

@@ -1,18 +1,25 @@
-"""LM layer library of the port (plain functions on tensors).
+"""Layer library of the port (plain functions on tensors).
 
-Counterpart of the LM subset of ``repro.models.layers``: every
-parametric layer threads an optional ``QuantCtx`` so the edge prefix
-runs the paper's mixed-precision mode — weights on the per-channel INT8
-lattice, input activations fake-quantized per row (``act_axis=0``) —
-while the cloud passes ``qctx=None`` and stays full precision.
+Counterpart of ``repro.models.layers``: every parametric layer threads
+an optional ``QuantCtx`` so the edge prefix runs the paper's
+mixed-precision mode — weights on the per-channel INT8 lattice, input
+activations fake-quantized (per tensor, per row with ``act_axis=0``, or
+at thresholds calibrated off-line) — while the cloud passes
+``qctx=None`` and stays full precision.
 
 Dtypes follow the JAX reference operation by operation: torch promotes
 mixed operands the way JAX does (bf16 with f32 gives f32; a Python
 scalar keeps the tensor's dtype), and where JAX's ``einsum`` promotes
 its operands implicitly, ``dense`` does so explicitly.
 
-Only the paged KV cache form of ``attention`` is ported; the dense
-caches, ``_sdpa``, MoE and the vision layers come with later slices.
+The CNN layers of the paper's nets are NHWC with HWIO kernels, as in the
+reference: ``conv2d`` and ``maxpool2d`` pad explicitly where JAX's
+``"SAME"`` pads more at the end, and ``conv2d`` and ``cnn_dense`` run an
+f32 product on the card in true f32 (TF32 switched off for the call
+only, ``full_f32``); the LM's ``dense`` leaves the flags alone.  Only
+the paged KV cache form of ``attention`` is ported; the dense caches,
+``_sdpa``, MoE, ``avgpool2d``, the norms of ResNet and ViT and
+``patch_embed`` come with later slices.
 
 Tensor parallelism: ``attention`` and ``swiglu`` take either one
 parameter dict or a list with one per tensor-parallel shard
@@ -25,6 +32,7 @@ whole weights and whole activations, which a shard does not see.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -32,13 +40,17 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quant import compute_qparams, fake_quant
+from repro_torch.core.quant import (MinMaxCalibrator, QuantParams,
+                                    compute_qparams, fake_quant)
 from repro_torch.kernels.paged_attention import (paged_flash_mq_per_shard,
                                                  paged_multiquery_attention)
 from repro_torch.serve.sharding import all_reduce_sum
 
 Params = Dict[str, Any]
 Sharded = Union[Params, List[Params]]
+_ACTS = {None: lambda x: x, "relu": F.relu, "tanh": torch.tanh,
+         # jax.nn.gelu defaults to the tanh approximation
+         "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def shards(p: Any) -> list:
@@ -62,26 +74,96 @@ def _shard_inputs(p: Sharded, qctx) -> list:
 
 @dataclasses.dataclass
 class QuantCtx:
-    """Dynamic-mode quantization context: per-output-channel INT8
-    weights, ``a_bits`` activations with ranges computed per call (the
-    reference's static/calibration modes come with training).
-    ``act_axis=0`` gives every batch row its own activation range —
-    batched serving must use it, or one request's Eq.(1) lattice would
-    depend on its neighbours.  ``quantize_weights=False`` means the
-    weights already sit on the deployment lattice
-    (``serve.policy._CutBank``)."""
+    """Edge quantization context: per-output-channel ``w_bits`` weights
+    and ``a_bits`` activations whose ranges come from one of three
+    modes, each activation keyed by the name its layer gives it:
+
+    * ``"dynamic"`` — computed per call (the name is ignored).
+      ``act_axis=0`` gives every batch row its own range — batched
+      serving must use it, or one request's Eq.(1) lattice would depend
+      on its neighbours;
+    * ``"calib"`` — nothing is quantized; each named activation's
+      min/max is recorded in ``recorder`` (the paper's off-line
+      profiling step), and ``finalize_calibration`` turns them into
+      thresholds;
+    * ``"static"`` — the calibrated ``scales`` are replayed; a name
+      with no threshold passes through unquantized.
+
+    ``quantize_weights=False`` means the weights already sit on the
+    deployment lattice (``serve.policy._CutBank``)."""
     a_bits: int = 8
     act_axis: Optional[int] = None
     quantize_weights: bool = True
+    mode: str = "dynamic"
+    w_bits: int = 8
+    per_channel: bool = True
+    scales: Optional[Dict[str, QuantParams]] = None
+    recorder: Optional[Dict[str, MinMaxCalibrator]] = None
 
-    def weight(self, w: torch.Tensor) -> torch.Tensor:
+    def __post_init__(self):
+        if self.mode not in ("dynamic", "static", "calib"):
+            raise ValueError(f"unknown QuantCtx mode {self.mode!r}")
+
+    def weight(self, w: torch.Tensor, name: Optional[str] = None
+               ) -> torch.Tensor:
         if not self.quantize_weights:
             return w
-        return fake_quant(w, compute_qparams(w, axis=w.ndim - 1, bits=8))
+        axis = w.ndim - 1 if self.per_channel else None
+        return fake_quant(w, compute_qparams(w, axis=axis,
+                                             bits=self.w_bits))
 
-    def act(self, x: torch.Tensor) -> torch.Tensor:
-        qp = compute_qparams(x, axis=self.act_axis, bits=self.a_bits)
+    def act(self, x: torch.Tensor, name: Optional[str] = None
+            ) -> torch.Tensor:
+        if self.mode == "calib":
+            self.recorder.setdefault(
+                name, MinMaxCalibrator(bits=self.a_bits)).observe(x)
+            return x
+        if self.mode == "static":
+            qp = self.scales.get(name)
+            if qp is None:
+                return x
+        else:
+            qp = compute_qparams(x, axis=self.act_axis, bits=self.a_bits)
         return fake_quant(x, qp)
+
+    def finalize_calibration(self) -> Dict[str, QuantParams]:
+        if self.mode != "calib":
+            raise ValueError("finalize_calibration needs mode='calib'")
+        return {k: c.qparams() for k, c in self.recorder.items()}
+
+
+def make_calib_ctx(**kw) -> QuantCtx:
+    return QuantCtx(mode="calib", recorder={}, **kw)
+
+
+def q(qctx: Optional[QuantCtx], name: str, x: torch.Tensor) -> torch.Tensor:
+    return x if qctx is None else qctx.act(x, name)
+
+
+def qw(qctx: Optional[QuantCtx], name: str, w: torch.Tensor
+       ) -> torch.Tensor:
+    return w if qctx is None else qctx.weight(w, name)
+
+
+@contextlib.contextmanager
+def full_f32(active: bool):
+    """Switch TF32 off for cuDNN convolutions and for matmuls inside the
+    block (when ``active``: an f32 product of the CNN path on the card)
+    and restore the caller's settings afterwards, so no call changes the
+    precision of later products in the process.  The flags are
+    process-wide: a product on another thread meanwhile sees them off."""
+    if not active:
+        yield
+        return
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -98,11 +180,25 @@ def _fan_in_init(gen: torch.Generator, shape, fan_in: int,
 
 
 def dense_init(gen, d_in: int, d_out: int, *, dtype, device,
-               layers: Optional[int] = None) -> Params:
-    """Bias-free dense layer (the LM uses no biases); ``layers`` stacks a
-    leading ``[L]`` axis."""
+               layers: Optional[int] = None, bias: bool = False) -> Params:
+    """Dense layer, bias-free unless ``bias`` (the LM uses no biases, the
+    CNNs do); ``layers`` stacks a leading ``[L]`` axis."""
     shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
-    return {"w": _fan_in_init(gen, shape, d_in, dtype, device)}
+    p = {"w": _fan_in_init(gen, shape, d_in, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros(shape[:-2] + (d_out,), dtype=dtype,
+                             device=device)
+    return p
+
+
+def conv2d_init(gen, k: int, c_in: int, c_out: int, *, bias: bool = True,
+                dtype=torch.float32, device) -> Params:
+    """HWIO ``k × k`` kernel, fan-in scaled, and a zero bias."""
+    p = {"w": _fan_in_init(gen, (k, k, c_in, c_out), k * k * c_in, dtype,
+                           device)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), dtype=dtype, device=device)
+    return p
 
 
 def norm_init(dim: int, *, dtype, device,
@@ -122,15 +218,89 @@ def embed_init(gen, vocab: int, dim: int, *, dtype, device) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def dense(p: Params, x: torch.Tensor, *,
-          qctx: Optional[QuantCtx] = None) -> torch.Tensor:
-    """Bias-free ``x @ w`` in the promoted dtype of the two (the LM has
-    no biases), on the edge's lattice when ``qctx`` is given."""
+def dense(p: Params, x: torch.Tensor, *, qctx: Optional[QuantCtx] = None,
+          name: str = "dense", act: Optional[str] = None) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, plus ``b`` where the
+    layer has one and then ``act``, on the edge's lattice when ``qctx``
+    is given (activation ``{name}/in``, weight ``{name}/w``; a dynamic
+    context keys nothing, so the LM's calls build no name)."""
     w = p["w"]
     if qctx is not None:
-        x, w = qctx.act(x), qctx.weight(w)
+        if qctx.mode == "dynamic":
+            x, w = qctx.act(x), qctx.weight(w)
+        else:
+            x, w = qctx.act(x, f"{name}/in"), qctx.weight(w, f"{name}/w")
     dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dt), w.to(dt))
+    y = torch.matmul(x.to(dt), w.to(dt))
+    if "b" in p:
+        y = y + p["b"]
+    return y if act is None else _ACTS[act](y)
+
+
+def cnn_dense(p: Params, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``dense`` of the CNN path: an f32 product on the card in true f32
+    (``full_f32``), as its convolutions."""
+    with full_f32(x.is_cuda and x.dtype == torch.float32):
+        return dense(p, x, **kw)
+
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """JAX's ``"SAME"``: ceil(size / stride) outputs, the odd pad cell at
+    the end."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, k: Tuple[int, int], stride: int, padding: str
+          ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """NHWC ``x`` → ((top, bottom), (left, right)) for ``"SAME"`` or
+    ``"VALID"``."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', not "
+                         f"{padding!r}")
+    return (_same_pads(x.shape[1], k[0], stride),
+            _same_pads(x.shape[2], k[1], stride))
+
+
+def conv2d(p: Params, x: torch.Tensor, *, stride: int = 1,
+           padding: str = "SAME", qctx: Optional[QuantCtx] = None,
+           name: str = "conv", act: Optional[str] = None,
+           groups: int = 1) -> torch.Tensor:
+    """NHWC input, HWIO kernel → NHWC, plus ``b`` and ``act``.  The
+    NCHW view torch convolves is the channels-last layout of the same
+    memory, so no copy is made; an uneven ``"SAME"`` pad is applied as
+    explicit zeros."""
+    x, w = q(qctx, f"{name}/in", x), qw(qctx, f"{name}/w", p["w"])
+    (top, bottom), (left, right) = _pads(x, w.shape[:2], stride, padding)
+    xn = x.permute(0, 3, 1, 2)
+    pad = (top, left)
+    if (top, left) != (bottom, right):
+        xn = F.pad(xn, (left, right, top, bottom))
+        pad = (0, 0)
+    with full_f32(x.is_cuda and x.dtype == torch.float32):
+        y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride, padding=pad,
+                     groups=groups)
+    y = y.permute(0, 2, 3, 1)
+    if "b" in p:
+        y = y + p["b"]
+    return _ACTS[act](y)
+
+
+def maxpool2d(x: torch.Tensor, *, window: int, stride: int,
+              padding: str = "SAME") -> torch.Tensor:
+    """NHWC max pool; pad cells are −inf (``reduce_window``'s init), an
+    uneven ``"SAME"`` pad applied explicitly."""
+    (top, bottom), (left, right) = _pads(x, (window, window), stride,
+                                         padding)
+    xn = x.permute(0, 3, 1, 2)
+    pad = (top, left)
+    if (top, left) != (bottom, right):
+        xn = F.pad(xn, (left, right, top, bottom), value=-math.inf)
+        pad = (0, 0)
+    return F.max_pool2d(xn, window, stride, padding=pad).permute(0, 2, 3, 1)
 
 
 def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6

@@ -2,9 +2,12 @@
 paged-attention kernel also in its tensor-parallel form, one launch per
 shard), the collaborative engine (serial, speculative, and with its
 cloud tensor-parallel over two shards of the card) on CUDA against the
-same engine on the CPU, and sampled serving on the card: threefry keys,
+same engine on the CPU, sampled serving on the card (threefry keys,
 uniforms and draws equal to the CPU's, sampled streams deterministic
-and equal to the CPU's, ``temperature=0`` equal to the greedy stream.
+and equal to the CPU's, ``temperature=0`` equal to the greedy stream),
+and the paper's CNN split inference: AlexNet's collaborative engine on
+the card against the CPU, and the CNN layers' f32 products in true f32
+with the caller's TF32 flags left as they were.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine with the card alone:
@@ -16,7 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.bridge import tree_map  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core import collab as TC  # noqa: E402
 from repro_torch.core.quant import (QuantParams, compute_qparams,  # noqa: E402
                                     quantize)
 from repro_torch.kernels import int8_matmul as IK  # noqa: E402
@@ -24,6 +29,8 @@ from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
+from repro_torch.models import layers as TLY  # noqa: E402
+from repro_torch.models import legacy as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
 from repro_torch.serve import sampling as SS  # noqa: E402
@@ -872,3 +879,72 @@ def test_tp_engine_on_card_matches_cpu(cuda, spec_k):
                           ("cuda", make_serve_mesh(model=2)),
                           ("cuda", None))]
     assert outs[1] == outs[0] == outs[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tf32", [True, False])
+def test_cnn_layers_on_card_are_true_f32_and_restore_tf32(cuda, tf32,
+                                                          monkeypatch):
+    """``conv2d`` and ``cnn_dense`` on the card with the caller's TF32 flags
+    on or off: each product within 1e-5 of max |f64 CPU| (TF32's 10-bit
+    mantissa would be ~1e-3 off), and the flags as the caller left
+    them."""
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    monkeypatch.setattr(mm, "allow_tf32", tf32)
+    monkeypatch.setattr(cudnn, "allow_tf32", tf32)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 27, 27, 96, generator=g)
+    conv = {"w": torch.randn(5, 5, 96, 256, generator=g) * 0.05,
+            "b": torch.randn(256, generator=g)}
+    fc = {"w": torch.randn(4096, 1000, generator=g) * 0.02,
+          "b": torch.randn(1000, generator=g)}
+    h = torch.randn(8, 4096, generator=g)
+    for fn, p, inp in ((TLY.conv2d, conv, x), (TLY.cnn_dense, fc, h)):
+        want = fn(tree_map(lambda t: t.double(), p), inp.double(),
+                  act="relu")
+        got = fn(tree_map(lambda t: t.cuda(), p), inp.cuda(), act="relu")
+        assert (mm.allow_tf32, cudnn.allow_tf32) == (tf32, tf32)
+        err = (got.cpu().double() - want).abs().max() / want.abs().max()
+        assert err < 1e-5, (fn.__name__, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", ["conv2", "conv5"])
+def test_alexnet_engine_on_card_matches_cpu(cuda, cut):
+    """AlexNet's collaborative engine, the same weights and calibration
+    batches on the card and on the CPU, each device calibrating its own:
+    blob bytes, download bytes and zero points equal; scales to rtol
+    1e-4; the fp32 model within 1e-4 of max |CPU|; the boundary lattice
+    of the same input to the last edge segment (the card's) at most one
+    step apart on at most 5 % of elements (cuDNN and oneDNN sum a conv in
+    other orders; end to end each static lattice of the edge passes a
+    flipped step on, two steps at ``conv5``); the INT8 outputs to
+    relative L2 0.05."""
+    params = TL.init_alexnet(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(0)
+    calib = [torch.tensor(rng.rand(4, 227, 227, 3).astype(np.float32))
+             for _ in range(2)]
+    x = torch.tensor(rng.rand(2, 227, 227, 3).astype(np.float32))
+    runs = []
+    for dev in ("cpu", "cuda"):
+        m = TL.alexnet_segments(tree_map(lambda t: t.to(dev), params))
+        eng = TC.CollaborativeEngine(m, cut, device=dev,
+                                     calib_batches=calib)
+        y, rec = eng.infer(x)
+        runs.append((eng, rec, y.cpu(), m.full_apply(x.to(dev)).cpu()))
+    (ce, crec, cy, cfull), (ge, grec, gy, gfull) = runs
+    h = ge.last_edge_input(x)
+    blobs = [e.forced_boundary(h)[0].cpu().int() for e in (ce, ge)]
+    assert grec.blob_bytes == crec.blob_bytes == blobs[0].numel() + 8
+    assert ge.edge_download_bytes == ce.edge_download_bytes
+    assert sorted(ge.act_scales) == sorted(ce.act_scales)
+    for k, qp in ce.act_scales.items():
+        torch.testing.assert_close(ge.act_scales[k].scale.cpu(), qp.scale,
+                                   rtol=1e-4, atol=0)
+        assert torch.equal(ge.act_scales[k].zero_point.cpu(),
+                           qp.zero_point)
+    assert (gfull - cfull).abs().max() <= 1e-4 * cfull.abs().max()
+    steps = (blobs[1] - blobs[0]).abs()
+    assert steps.max() <= 1 and (steps > 0).float().mean() <= 0.05
+    rel = torch.linalg.norm(gy - cy) / torch.linalg.norm(cy)
+    assert torch.isfinite(gy).all() and rel < 0.05
