@@ -90,18 +90,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     CPU's tp = 2 up to near-ties, and the INT8
                     ``spec_k=4`` stream equal to the serial one on each
                     device.
-10. ``cnn_path`` — the paper's own CNN split inference (``core.collab``):
-                    AlexNet, VGG16 and GoogLeNet at full width and the
-                    paper's resolutions, seeded random weights; at every
-                    candidate cut a calibrated INT8-edge / fp32-cloud
-                    engine: edge and cloud ms and images/s at batch 1
-                    and 32, blob bytes (asserted against the graph),
+10. ``cnn_path`` — collaborative split inference of the image models
+                    (``core.collab``): the paper's AlexNet, VGG16 and
+                    GoogLeNet, and ResNet-18, ResNet-152, ViT-S/16,
+                    DeiT-B and ViT-H/14, at full width and depth and
+                    their published resolutions, f32 (the one departure
+                    from the published configs, which say bf16 for all
+                    of them but ResNet-18: the reference's engine fails
+                    in bf16), seeded random weights; at every engine
+                    cut a calibrated INT8-edge / fp32-cloud engine: edge
+                    and cloud ms and images/s at batch 1 and 32, blob
+                    bytes (asserted against the graph at every cut),
                     int8 download, fp32 error; Algorithm 1's Table 3
                     picks (asserted: the JAX package's); AlexNet
-                    ``conv5`` and GoogLeNet ``conv2`` card against CPU
-                    (fp32 output, teacher-forced boundary lattice, INT8
-                    output; the end-to-end lattice reported).
-                    No kernel is on this path (launches read: 0).
+                    ``conv5``, GoogLeNet ``conv2``, ResNet-18
+                    ``s1b0/body`` and ViT-S/16 ``blk0/ffn`` card
+                    against CPU (fp32 output, scales, the boundary
+                    lattice of one float tensor exact, the last edge
+                    segment's lattices teacher-forced one by one, its
+                    float output, INT8 output; the lattice with only
+                    the segment's input forced and end to end
+                    reported).  No kernel is on this path (launches
+                    read: 0).
 
 Then a ``{"kernels": [...]}`` summary line (each row with its
 ``cnn_path_launches``), the ``nvidia-smi`` name and
@@ -138,8 +148,9 @@ INT8_RTOL, INT8_ATOL = 1e-5, 1e-4  # the JAX suite's f32 epilogue tolerance
 # Algorithm 1's pick on each of the paper's CNNs at its Table 3 bandwidth
 # (KB/s), as the JAX package computes it (tests/test_torch_legacy.py
 # holds these against it); the paper's own cuts are conv5, conv1_2, conv2
+# and, for ResNet-18, res4a
 TABLE3_PICKS = {"alexnet": (250, "conv1"), "vgg16": (240, "input"),
-                "googlenet": (180, "fc")}
+                "googlenet": (180, "fc"), "resnet-18": (70, "head")}
 
 
 _START = time.perf_counter()
@@ -2164,22 +2175,54 @@ def phase_path_parity() -> None:
 
 # the cnn_path's card-against-CPU check (cuDNN and oneDNN sum a conv in
 # other orders): fp32 outputs within CNN_F32_TOL of max |CPU| (TF32 would
-# be ~1e-3 off); the boundary lattice of the same input to the last edge
-# segment at most one step apart on at most CNN_LATTICE_SHARE of its
-# elements; the INT8 outputs within relative L2 CNN_INT8_TOL.  End to
-# end the edges' lattices are reported, not bounded: each static lattice
-# passes a flipped step on (AlexNet conv5: two steps apart on the card)
+# be ~1e-3 off); the boundary lattice of the same float tensor under the
+# same (scale, zero point) equal, and each device's scale for it within
+# one ulp (the card multiplies by the reciprocal of 255); in the last
+# edge segment, each lattice of the CPU going on from the card's
+# lattices (teacher-forced lattice by lattice) at most one step apart on
+# at most CNN_LATTICE_SHARE of its elements; the segment's float output
+# and the INT8 outputs within relative L2 CNN_INT8_TOL; the calibrated
+# scales within CNN_SCALE_RTOL.  Reported, not bounded: the boundary
+# lattice with only the segment's input forced and end to end, where
+# each static lattice passes a flipped step on to the next (AlexNet
+# conv5: two steps apart end to end; a ViT block holds six)
 CNN_F32_TOL = 1e-4
 CNN_LATTICE_SHARE = 0.05
 CNN_INT8_TOL = 0.05
-CNN_NETS = (("alexnet", "conv5"), ("vgg16", None),
-            ("googlenet", "conv2"))          # net, card-vs-CPU cut
+CNN_SCALE_RTOL = 1e-4
+# net, card-vs-CPU cut.  The ResNets and ViTs run at their published
+# widths and depths in f32 (their configs say bf16 for all but
+# resnet-18; the reference's collaborative engine fails in bf16)
+CNN_NETS = (("alexnet", "conv5"), ("vgg16", None), ("googlenet", "conv2"),
+            ("resnet-18", "s1b0/body"), ("resnet-152", None),
+            ("vit-s16", "blk0/ffn"), ("deit-b", None), ("vit-h14", None))
+LEGACY_CNNS = ("alexnet", "vgg16", "googlenet")
 CNN_REPEATS = 5
 
 
 def _cnn_images(batch, res, seed, device="cuda"):
     g = torch.Generator(device=device).manual_seed(seed)
     return torch.rand((batch, res, res, 3), generator=g, device=device)
+
+
+def _cnn_model(net: str, device="cuda"):
+    """One net of ``CNN_NETS`` at full width, seeded random weights from
+    the port's ``init_*`` on ``device``, f32 → (segmented model, input
+    resolution)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import legacy, resnet, vit
+    gen = torch.Generator(device=device).manual_seed(0)
+    cfg = get_arch(net).full
+    if net in LEGACY_CNNS:
+        params = getattr(legacy, f"init_{net}")(gen, device=device)
+        return getattr(legacy, f"{net}_segments")(params), cfg.img_res
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    if net.startswith("resnet"):
+        return resnet.make_segments(
+            resnet.init_resnet(gen, cfg, device=device), cfg), cfg.img_res
+    return vit.make_segments(vit.init_vit(gen, cfg, device=device),
+                             cfg), cfg.img_res
 
 
 def _cnn_cut_row(eng, cand, x1, x32, truth) -> dict:
@@ -2228,14 +2271,31 @@ def _steps(a: torch.Tensor, b: torch.Tensor) -> dict:
 
 
 def _cnn_card_vs_cpu(model, cut, calib, x) -> dict:
-    """The same weights, calibration batches and images through the port
-    on the card and on the CPU at ``cut``, each device calibrating its
-    own engine: the fp32 model's output; the boundary lattice end to end
-    (reported) and with the last edge segment fed the card's own input
-    to it on both devices (teacher-forced, bounded); the INT8 output."""
+    """The same weights, calibration batches and images (all on the card;
+    on the CPU, a test's own check) through the port on their device and
+    on the CPU at ``cut``, each device calibrating its own engine.
+    Checked: blob bytes (the boundary's elements + 8), download bytes,
+    the ``act_scales`` names and zero points equal; the scales within
+    ``CNN_SCALE_RTOL``; the fp32 model's output within ``CNN_F32_TOL`` of
+    max |CPU|.  At the last edge segment, fed the card's own input to it
+    (``h``): the boundary of the card's float output, its lattice under
+    the card's (scale, zero point) equal on both devices, and the CPU's
+    own zero point equal and scale within one ulp (torch on the card
+    divides a tensor by a Python number as a product with its
+    reciprocal); each static lattice of the segment and the boundary,
+    the CPU going on from the card's lattices under the card's scales
+    (``last_edge_trace(force=)``), at most one step apart on at most
+    ``CNN_LATTICE_SHARE`` of its elements; the segment's float output,
+    each device on its own lattices, within relative L2
+    ``CNN_INT8_TOL``; the INT8 outputs within relative L2
+    ``CNN_INT8_TOL``.  Reported besides: the boundary lattice with only
+    ``h`` forced, and end to end.  Used by ``phase_cnn_path`` and by the
+    ``gpu`` tests of ``tests/test_torch_cuda.py``."""
+    import dataclasses
     from repro_torch.bridge import tree_map
     from repro_torch.core.collab import (CollaborativeEngine, Segment,
                                          SegmentedModel)
+    from repro_torch.core.quant import quantize
     cpu_model = SegmentedModel(model.name, model.graph, [
         Segment(s.name, s.apply, tree_map(lambda t: t.cpu(), s.params))
         for s in model.segments])
@@ -2245,55 +2305,95 @@ def _cnn_card_vs_cpu(model, cut, calib, x) -> dict:
         f32_err = float((y_gpu - y_cpu).abs().max() / y_cpu.abs().max())
         g, c = (CollaborativeEngine(m, cut, device=dev, calib_batches=[
             b.to(dev) for b in calib])
-            for m, dev in ((model, "cuda"), (cpu_model, "cpu")))
+            for m, dev in ((model, x.device), (cpu_model, "cpu")))
         end_to_end = _steps(g.boundary(g.edge_forward(x))[0],
                             c.boundary(c.edge_forward(x.cpu()))[0])
         h = g.last_edge_input(x)
-        forced = _steps(g.forced_boundary(h)[0], c.forced_boundary(h)[0])
-        y_g, y_c = g.infer(x)[0].cpu(), c.infer(x.cpu())[0]
+        z_g, lats_g = g.last_edge_trace(h)
+        z_c, _ = c.last_edge_trace(h)
+        z_f, lats_f = c.last_edge_trace(h, force=lats_g,
+                                        scales=g.act_scales)
+        blob_g, qp_g = g.boundary(z_g)
+        qp_c = c.boundary(z_g.cpu())[1]
+        on_cpu = dataclasses.replace(qp_g, scale=qp_g.scale.cpu(),
+                                     zero_point=qp_g.zero_point.cpu())
+        ulp = torch.nextafter(qp_c.scale, qp_c.scale + 1) - qp_c.scale
+        same_float = {
+            "lattice_equal": torch.equal(blob_g.cpu(),
+                                         quantize(z_g.cpu(), on_cpu)),
+            "zero_point_equal": torch.equal(on_cpu.zero_point,
+                                            qp_c.zero_point),
+            "scale_ulps": float((on_cpu.scale - qp_c.scale).abs() / ulp)}
+        input_forced = _steps(blob_g, c.boundary(z_c)[0])
+        lattices = [_steps(a, b) for a, b in zip(
+            lats_g + [blob_g], lats_f + [c.boundary(z_f)[0]])]
+        (y_g, rec_g), (y_c, rec_c) = g.infer(x), c.infer(x.cpu())
+    z_g, y_g = z_g.cpu(), y_g.cpu()
+    edge_rel = float(torch.linalg.norm(z_g - z_c) / torch.linalg.norm(z_c))
     int8_rel = float(torch.linalg.norm(y_g - y_c) / torch.linalg.norm(y_c))
-    scale_rel = max(float(abs(g.act_scales[k].scale.cpu() - qp.scale)
-                          / qp.scale) for k, qp in c.act_scales.items())
+    same_names = sorted(g.act_scales) == sorted(c.act_scales)
+    scale_rel = max((float(abs(g.act_scales[k].scale.cpu() - qp.scale)
+                           / qp.scale) for k, qp in c.act_scales.items()
+                     if k in g.act_scales), default=0.0)
+    same_zero_points = same_names and all(
+        torch.equal(g.act_scales[k].zero_point.cpu(), qp.zero_point)
+        for k, qp in c.act_scales.items())
+    forced = {"lattices": len(lattices),
+              "max_step": max(r["max_step"] for r in lattices),
+              "max_share": max(r["share"] for r in lattices),
+              "shares": [r["share"] for r in lattices]}
     res = {"cut": cut, "f32_max_err": f32_err, "f32_tol": CNN_F32_TOL,
-           "teacher_forced_lattice": forced,
+           "same_float_boundary": same_float,
+           "teacher_forced_lattices": forced,
            "lattice_share_tol": CNN_LATTICE_SHARE,
+           "input_forced_lattice": input_forced,
            "end_to_end_lattice": end_to_end,
+           "last_edge_rel_l2": edge_rel,
            "int8_rel_l2": int8_rel, "int8_tol": CNN_INT8_TOL,
-           "act_scale_max_rel_diff": scale_rel}
-    if not (f32_err <= CNN_F32_TOL and forced["max_step"] <= 1
-            and forced["share"] <= CNN_LATTICE_SHARE
-            and int8_rel <= CNN_INT8_TOL):
+           "act_scale_names": len(c.act_scales),
+           "act_scale_max_rel_diff": scale_rel,
+           "act_scale_rtol": CNN_SCALE_RTOL,
+           "blob_bytes": rec_g.blob_bytes}
+    if not (rec_g.blob_bytes == rec_c.blob_bytes == blob_g.numel() + 8
+            and g.edge_download_bytes == c.edge_download_bytes
+            and same_names and same_zero_points
+            and scale_rel <= CNN_SCALE_RTOL
+            and f32_err <= CNN_F32_TOL and same_float["lattice_equal"]
+            and same_float["zero_point_equal"]
+            and same_float["scale_ulps"] <= 1
+            and len(lats_f) == len(lats_g) and forced["max_step"] <= 1
+            and forced["max_share"] <= CNN_LATTICE_SHARE
+            and math.isfinite(edge_rel) and edge_rel <= CNN_INT8_TOL
+            and math.isfinite(int8_rel) and int8_rel <= CNN_INT8_TOL):
         raise AssertionError(f"{model.name} card vs CPU: {res}")
     return res
 
 
 def phase_cnn_path() -> dict:
     """The paper's own CNN split inference (``core.collab``) on the card:
-    AlexNet (227²), VGG16 and GoogLeNet (224²), at each config's
-    ``img_res``, full width, seeded random weights built on the card by
-    the port's ``init_*``.  At every
-    candidate cut a ``CollaborativeEngine`` calibrated on 4 seeded
-    batches of 8: edge / cloud ms and images/s at batch 1 and 32 (median
-    of ``CNN_REPEATS``), blob bytes (asserted: the graph's boundary
-    elements + 8, or 4 B an element at ``input``), the int8 download
-    and storage reduction, the fp32 relative error against
+    AlexNet (227²), VGG16, GoogLeNet, ResNet-18/152, ViT-S/16, DeiT-B and
+    ViT-H/14 (224²), full width and depth, f32, seeded random weights
+    built on the card by the port's ``init_*`` (``_cnn_model``).  At
+    every engine cut (``input`` and each segment; ViT's ``blk{i}/attn``
+    candidates end no segment) a ``CollaborativeEngine`` calibrated on 4
+    seeded batches of 8: edge / cloud ms and images/s at batch 1 and 32
+    (median of ``CNN_REPEATS``), blob bytes (asserted at every cut: the
+    graph's boundary elements + 8, or 4 B an element at ``input``), the
+    int8 download and storage reduction, the fp32 relative error against
     ``full_apply`` (finite; < 1e-6 at ``input``); a ``torch.profiler``
     window at batch 32 at ``input`` and at the last cut (all on the
-    edge): device busy time and idle share.  Algorithm 1 on the
-    port's graphs at the Table 3 bandwidths must pick ``TABLE3_PICKS``.
-    AlexNet at ``conv5`` and GoogLeNet at ``conv2``, card against CPU
-    (``_cnn_card_vs_cpu``, on 8 seeded images).  TF32 is switched on for
-    the whole phase and must be on again after it: the path's convs and
-    denses keep their f32 products true f32 within their own calls.
-    Kernel launch counts are set to 0 before and returned after, by
-    summary row (no kernel is on this path)."""
-    from repro_torch.configs import get_arch
+    edge): device busy time and idle share.  Algorithm 1 on the port's
+    graphs at the Table 3 bandwidths must pick ``TABLE3_PICKS``.  At
+    each net's card-vs-CPU cut of ``CNN_NETS``, ``_cnn_card_vs_cpu`` on 8
+    seeded images.  TF32 is switched on for the whole phase and must be
+    on again after it: the path's products keep true f32 within their
+    own calls.  Kernel launch counts are set to 0 before and returned
+    after, by summary row (no kernel is on this path)."""
     from repro_torch.core.autotune import AutoTuner
     from repro_torch.core.collab import CollaborativeEngine
     from repro_torch.core.costmodel import (CLOUD_TITANXP_CLASS, Channel,
                                             EDGE_TX2_CLASS)
     from repro_torch.core.partition import candidate_partition_points
-    from repro_torch.models import legacy
 
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
@@ -2303,11 +2403,7 @@ def phase_cnn_path() -> dict:
     try:
         for net, parity_cut in CNN_NETS:
             t0 = time.perf_counter()
-            res = get_arch(net).full.img_res
-            params = getattr(legacy, f"init_{net}")(
-                torch.Generator(device="cuda").manual_seed(0),
-                device="cuda")
-            model = getattr(legacy, f"{net}_segments")(params)
+            model, res = _cnn_model(net)
             model.verify_alignment()
             cands = {c.name: c for c in candidate_partition_points(
                 model.graph)}
@@ -2316,7 +2412,7 @@ def phase_cnn_path() -> dict:
             with torch.no_grad():
                 truth = model.full_apply(x1)
             rows, profiles = [], {}
-            names = model.candidate_names()
+            names = ["input"] + [s.name for s in model.segments]
             for cut in names:
                 eng = CollaborativeEngine(model, cut, calib_batches=calib,
                                           device="cuda")
@@ -2330,27 +2426,31 @@ def phase_cnn_path() -> dict:
                         "device_busy_s", "device_idle_share",
                         "device_events", "unprofiled_wall_s",
                         "profiled_wall_s", "top")}
-            kbps, pick = TABLE3_PICKS[net]
-            best, _ = AutoTuner(model.graph, EDGE_TX2_CLASS,
-                                CLOUD_TITANXP_CLASS).tune(
-                Channel.from_kbps(kbps))
-            if best.point != pick:
-                raise AssertionError(f"{net}: Algorithm 1 picks "
-                                     f"{best.point} at {kbps} KB/s, the "
-                                     f"JAX package {pick}")
+                del eng
+            algorithm1 = None
+            if net in TABLE3_PICKS:
+                kbps, pick = TABLE3_PICKS[net]
+                best, _ = AutoTuner(model.graph, EDGE_TX2_CLASS,
+                                    CLOUD_TITANXP_CLASS).tune(
+                    Channel.from_kbps(kbps))
+                if best.point != pick:
+                    raise AssertionError(f"{net}: Algorithm 1 picks "
+                                         f"{best.point} at {kbps} KB/s, "
+                                         f"the JAX package {pick}")
+                algorithm1 = {"kbps": kbps, "pick": best.point,
+                              "jax_pick": pick}
             parity = (_cnn_card_vs_cpu(model, parity_cut, calib,
                                        _cnn_images(8, res, 3))
                       if parity_cut else None)
             torch.cuda.synchronize()
-            emit("cnn_path", net=net, img_res=res,
+            emit("cnn_path", net=net, img_res=res, dtype="float32",
                  params=model.graph.total_param_elems(),
                  gflops_b1=model.graph.total_flops() / 1e9,
-                 n_cuts=len(rows), repeats=CNN_REPEATS,
-                 algorithm1={"kbps": kbps, "pick": best.point,
-                             "jax_pick": pick},
+                 n_cuts=len(rows), n_candidates=len(cands),
+                 repeats=CNN_REPEATS, algorithm1=algorithm1,
                  card_vs_cpu=parity, cuts=rows, profiles_b32=profiles,
                  seconds=time.perf_counter() - t0)
-            del params, model
+            del model
             torch.cuda.empty_cache()
         if (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32) != (True, True):

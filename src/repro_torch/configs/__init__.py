@@ -3,9 +3,10 @@
 Each config module defines ``FULL`` (the published numbers) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as in
 ``repro.configs``; the port's registry holds the archs whose path is
-ported: the LMs of the serving path and the paper's CNNs (their
-``SMOKE`` is ``FULL``: the graphs are exact only at the published
-resolution)."""
+ported: the LMs of the serving path, the paper's CNNs (their ``SMOKE``
+is ``FULL``: the graphs are exact only at the published resolution),
+and the ResNets and ViTs (``family="vision"``, their ``SMOKE`` the
+reference's reduced one)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,11 +25,14 @@ class ArchSpec:
 
 
 def _registry() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import (alexnet, deepseek_7b, googlenet,
-                                     phi3_medium_14b, vgg16)
+    from repro_torch.configs import (alexnet, deepseek_7b, deit_b,
+                                     googlenet, phi3_medium_14b, resnet18,
+                                     resnet152, vgg16, vit_h14, vit_s16)
     return {s.arch_id: s for s in (deepseek_7b.SPEC, phi3_medium_14b.SPEC,
                                    alexnet.SPEC, vgg16.SPEC,
-                                   googlenet.SPEC)}
+                                   googlenet.SPEC, resnet18.SPEC,
+                                   resnet152.SPEC, vit_s16.SPEC,
+                                   deit_b.SPEC, vit_h14.SPEC)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -32,8 +32,9 @@ from repro_torch.core.costmodel import QP_BYTES, Channel
 from repro_torch.core.graph import LayerGraph
 from repro_torch.core.partition import candidate_partition_points
 from repro_torch.core.quant import (QuantParams, compute_qparams, dequantize,
-                                    dequantize_pytree, pytree_quant_bytes,
-                                    quantize, quantize_pytree)
+                                    dequantize_pytree, fake_quant,
+                                    pytree_quant_bytes, quantize,
+                                    quantize_pytree)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import QuantCtx, make_calib_ctx
 
@@ -87,6 +88,25 @@ def _run(segments: Sequence[Segment], params: Sequence[Params],
     for seg, p in zip(segments, params):
         h = seg.apply(p, h, qctx=qctx)
     return h
+
+
+@dataclasses.dataclass
+class _LatticeTrace(QuantCtx):
+    """A static ``QuantCtx`` that keeps each activation's lattice in call
+    order and, given ``force`` (another run's lattices in that order),
+    goes on from those rather than from its own."""
+    lattices: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    force: Optional[List[torch.Tensor]] = None
+
+    def act(self, x: torch.Tensor, name: Optional[str] = None
+            ) -> torch.Tensor:
+        qp = self.scales.get(name)
+        if qp is None:
+            return x
+        self.lattices.append(quantize(x, qp))
+        if self.force is None:
+            return fake_quant(x, qp)
+        return dequantize(self.force[len(self.lattices) - 1], qp)
 
 
 class CollaborativeEngine:
@@ -169,15 +189,30 @@ class CollaborativeEngine:
                     x.to(self.device), self.edge_qctx)
 
     @torch.no_grad()
-    def forced_boundary(self, h: torch.Tensor
-                        ) -> Tuple[torch.Tensor, QuantParams]:
-        """``boundary`` of the last edge segment run on ``h``, its input
-        (from ``last_edge_input`` of this or another engine): fed one
-        input, two engines' lattices do not inherit the differences of
-        their earlier segments (teacher-forced)."""
-        return self.boundary(_run(self.edge_segments[-1:],
-                                  self.edge_params[-1:], h.to(self.device),
-                                  self.edge_qctx))
+    def last_edge_trace(self, h: torch.Tensor, *,
+                        force: Optional[Sequence[torch.Tensor]] = None,
+                        scales: Optional[Dict[str, QuantParams]] = None
+                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The last edge segment of a calibrated engine run on ``h`` (from
+        ``last_edge_input`` of this or another engine) → (its float
+        output, the lattice of each static activation in call order).
+        Given ``force`` (another engine's lattices of this segment), each
+        activation goes on from the forced lattice instead of its own, so
+        every lattice is this engine's quantizer on the float that the
+        other engine's lattices lead to: teacher-forced lattice by
+        lattice, where feeding ``h`` alone forces only the segment's
+        input.  ``scales`` (another engine's ``act_scales``) replaces this
+        engine's calibrated ranges."""
+        to_dev = lambda t: t.to(self.device)  # noqa: E731
+        ctx = _LatticeTrace(
+            mode="static", a_bits=self.a_bits, w_bits=self.w_bits,
+            scales={k: dataclasses.replace(qp, scale=to_dev(qp.scale),
+                                           zero_point=to_dev(qp.zero_point))
+                    for k, qp in (scales or self.act_scales).items()},
+            force=None if force is None else [to_dev(t) for t in force])
+        z = _run(self.edge_segments[-1:], self.edge_params[-1:],
+                 to_dev(h), ctx)
+        return z, ctx.lattices
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -114,8 +114,16 @@ def compute_qparams(x: torch.Tensor, *, axis: Optional[int] = None,
                               axis=axis)
 
 
+def _promoted(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
+    """``x`` in the dtype JAX computes ``x / scale`` in.  Torch lets a
+    0-dim f32 scale (one range for the tensor) keep a bf16 ``x`` in
+    bf16; JAX promotes it to f32, and so the lattice is taken in f32."""
+    return x.to(torch.promote_types(x.dtype, qp.scale.dtype))
+
+
 def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     """Paper Eq.(1): real → low-precision lattice, with saturation."""
+    x = _promoted(x, qp)
     scale = qp._bcast(qp.scale, x.ndim)
     zp = qp._bcast(qp.zero_point, x.ndim)
     q = torch.round(x / scale + zp)
@@ -133,6 +141,7 @@ def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
 def fake_quant(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     """Quantize→dequantize on the Eq.(1) lattice (forward of the JAX
     reference's straight-through round trip)."""
+    x = _promoted(x, qp)
     scale = qp._bcast(qp.scale, x.ndim)
     zp = qp._bcast(qp.zero_point, x.ndim)
     q = torch.clamp(torch.round(x / scale + zp), float(qp.qmin),

@@ -12,14 +12,17 @@ mixed operands the way JAX does (bf16 with f32 gives f32; a Python
 scalar keeps the tensor's dtype), and where JAX's ``einsum`` promotes
 its operands implicitly, ``dense`` does so explicitly.
 
-The CNN layers of the paper's nets are NHWC with HWIO kernels, as in the
-reference: ``conv2d`` and ``maxpool2d`` pad explicitly where JAX's
+The vision layers are NHWC with HWIO kernels, as in the reference:
+``conv2d``, ``maxpool2d`` and ``avgpool2d`` pad explicitly where JAX's
 ``"SAME"`` pads more at the end, and ``conv2d`` and ``cnn_dense`` run an
 f32 product on the card in true f32 (TF32 switched off for the call
-only, ``full_f32``); the LM's ``dense`` leaves the flags alone.  Only
-the paged KV cache form of ``attention`` is ported; the dense caches,
-``_sdpa``, MoE, ``avgpool2d``, the norms of ResNet and ViT and
-``patch_embed`` come with later slices.
+only, ``full_f32``); the LM's ``dense`` and ``_sdpa`` leave the flags
+alone, so the vision models call them inside ``full_f32``.
+``groupnorm`` and ``layernorm`` write out the reference's arithmetic
+(biased variance, moments of a bf16 tensor taken in f32 as ``jnp.mean``
+and ``jnp.var`` take them).  ``attention`` has the paged KV cache form
+of the LM and the no-cache form of ViT; the dense caches and MoE come
+with later slices.
 
 Tensor parallelism: ``attention`` and ``swiglu`` take either one
 parameter dict or a list with one per tensor-parallel shard
@@ -201,10 +204,38 @@ def conv2d_init(gen, k: int, c_in: int, c_out: int, *, bias: bool = True,
     return p
 
 
-def norm_init(dim: int, *, dtype, device,
-              layers: Optional[int] = None) -> Params:
+def norm_init(dim: int, *, dtype, device, layers: Optional[int] = None,
+              bias: bool = False) -> Params:
+    """Unit ``scale``, and a zero ``b`` where ``bias`` (the LM's norms
+    have none, the vision models' do: the reference's default)."""
     shape = (dim,) if layers is None else (layers, dim)
-    return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if bias:
+        p["b"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+def attention_init(gen, d_model: int, n_heads: int, n_kv: int,
+                   head_dim: Optional[int] = None, *, bias: bool = False,
+                   dtype, device, layers: Optional[int] = None) -> Params:
+    hd = head_dim or d_model // n_heads
+    kw = dict(bias=bias, dtype=dtype, device=device, layers=layers)
+    return {"wq": dense_init(gen, d_model, n_heads * hd, **kw),
+            "wk": dense_init(gen, d_model, n_kv * hd, **kw),
+            "wv": dense_init(gen, d_model, n_kv * hd, **kw),
+            "wo": dense_init(gen, n_heads * hd, d_model, **kw)}
+
+
+def mlp_init(gen, d_model: int, d_ff: int, *, bias: bool = True, dtype,
+             device, layers: Optional[int] = None) -> Params:
+    kw = dict(bias=bias, dtype=dtype, device=device, layers=layers)
+    return {"wi": dense_init(gen, d_model, d_ff, **kw),
+            "wo": dense_init(gen, d_ff, d_model, **kw)}
+
+
+def patch_embed_init(gen, patch: int, c_in: int, d_model: int, *,
+                     dtype=torch.float32, device) -> Params:
+    return conv2d_init(gen, patch, c_in, d_model, dtype=dtype, device=device)
 
 
 def embed_init(gen, vocab: int, dim: int, *, dtype, device) -> Params:
@@ -303,6 +334,57 @@ def maxpool2d(x: torch.Tensor, *, window: int, stride: int,
     return F.max_pool2d(xn, window, stride, padding=pad).permute(0, 2, 3, 1)
 
 
+def avgpool2d(x: torch.Tensor, *, window: int, stride: int,
+              padding: str = "SAME") -> torch.Tensor:
+    """NHWC average pool over the cells that are not padding: the
+    window sums and the counts of real cells, each summed as the
+    reference's two ``reduce_window`` calls sum them (pad cells are 0 in
+    the first, absent from the second)."""
+    (top, bottom), (left, right) = _pads(x, (window, window), stride,
+                                         padding)
+    pad = (left, right, top, bottom)
+
+    def window_sums(t):                      # NCHW → [N, C, Ho, Wo]
+        t = F.pad(t, pad).unfold(2, window, stride).unfold(3, window,
+                                                           stride)
+        return t.sum(dim=(-2, -1))
+    s = window_sums(x.permute(0, 3, 1, 2))
+    c = window_sums(torch.ones((1, 1) + x.shape[1:3], dtype=x.dtype,
+                               device=x.device))
+    return (s / c).permute(0, 2, 3, 1)
+
+
+def _moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance over ``dims`` (kept), in ``x``'s dtype;
+    a half-precision ``x`` is reduced in f32, as ``jnp.mean`` and
+    ``jnp.var`` do."""
+    xf = x.to(torch.float32) if x.dtype in (torch.bfloat16,
+                                            torch.float16) else x
+    mu = torch.mean(xf, dim=dims, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=dims, keepdim=True)
+    return mu.to(x.dtype), var.to(x.dtype)
+
+
+def layernorm(p: Params, x: torch.Tensor, *, eps: float = 1e-5
+              ) -> torch.Tensor:
+    mu, var = _moments(x, (-1,))
+    y = (x - mu) * torch.rsqrt(var + eps) * p["scale"]
+    return y + p["b"] if "b" in p else y
+
+
+def groupnorm(p: Params, x: torch.Tensor, *, groups: int = 32,
+              eps: float = 1e-5) -> torch.Tensor:
+    """NHWC group norm over ``min(groups, c)`` contiguous channel
+    groups."""
+    n, h, w, c = x.shape
+    g = min(groups, c)
+    xg = x.reshape(n, h, w, g, c // g)
+    mu, var = _moments(xg, (1, 2, 4))
+    xg = (xg - mu) * torch.rsqrt(var + eps)
+    y = xg.reshape(n, h, w, c) * p["scale"]
+    return y + p["b"] if "b" in p else y
+
+
 def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     var = torch.mean(torch.square(x.to(torch.float32)), dim=-1,
@@ -352,20 +434,88 @@ def swiglu(p: Sharded, x: torch.Tensor, *,
     return all_reduce_sum(parts)[0]
 
 
-# -- attention (paged KV cache) -----------------------------------------------
+def mlp(p: Params, x: torch.Tensor, *, act: str = "gelu",
+        qctx: Optional[QuantCtx] = None, name: str = "mlp") -> torch.Tensor:
+    h = dense(p["wi"], x, qctx=qctx, name=f"{name}/wi", act=act)
+    return dense(p["wo"], h, qctx=qctx, name=f"{name}/wo")
+
+
+def patch_embed(p: Params, img: torch.Tensor, *, patch: int,
+                qctx: Optional[QuantCtx] = None,
+                name: str = "patch") -> torch.Tensor:
+    """A VALID ``patch × patch`` conv at stride ``patch`` → [B, HW, C]."""
+    y = conv2d(p, img, stride=patch, padding="VALID", qctx=qctx, name=name)
+    b, h, w, c = y.shape
+    return y.reshape(b, h * w, c)
+
+
+# -- attention ---------------------------------------------------------------
+
+
+def _sdpa(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
+          causal: bool, q_offset: Union[int, torch.Tensor] = 0
+          ) -> torch.Tensor:
+    """q: [B, Sq, H, D], k/v: [B, Skv, H, D] (kv already head-repeated).
+    With ``causal``, query i sits at ``q_offset + i`` (a scalar, or a
+    [B] tensor of per-row offsets) and sees keys up to it.  The logits
+    are softmaxed in f32 and the probabilities cast to ``v``'s dtype."""
+    dt = torch.promote_types(qh.dtype, kh.dtype)
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.to(dt), kh.to(dt)) * scale
+    if causal:
+        sq, sk = qh.shape[1], kh.shape[1]
+        dev = qh.device
+        qpos = torch.arange(sq, device=dev)
+        kpos = torch.arange(sk, device=dev)
+        if torch.is_tensor(q_offset) and q_offset.ndim == 1:
+            qpos = qpos[None, :, None] + q_offset.to(dev)[:, None, None]
+            mask = (kpos[None, None, :] <= qpos)[:, None]   # [B,1,Sq,Skv]
+        else:
+            mask = (kpos[None, :] <= qpos[:, None] + q_offset)[None, None]
+        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(vh.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+
+
+def _attention_no_cache(p: Params, x: torch.Tensor, *, n_heads: int,
+                        n_kv: int, causal: bool, qctx: Optional[QuantCtx],
+                        name: str) -> torch.Tensor:
+    b, s, _ = x.shape
+    hd = p["wq"]["w"].shape[-1] // n_heads
+    qh = dense(p["wq"], x, qctx=qctx, name=f"{name}/q").reshape(
+        b, s, n_heads, hd)
+    kh = dense(p["wk"], x, qctx=qctx, name=f"{name}/k").reshape(
+        b, s, n_kv, hd)
+    vh = dense(p["wv"], x, qctx=qctx, name=f"{name}/v").reshape(
+        b, s, n_kv, hd)
+    if n_kv != n_heads:
+        kh = torch.repeat_interleave(kh, n_heads // n_kv, dim=2)
+        vh = torch.repeat_interleave(vh, n_heads // n_kv, dim=2)
+    out = _sdpa(qh, kh, vh, causal=causal).reshape(b, s, n_heads * hd)
+    return dense(p["wo"], out, qctx=qctx, name=f"{name}/o")
 
 
 def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
-              rope: Tuple[torch.Tensor, torch.Tensor],
-              kv_cache: Union[Dict[str, torch.Tensor],
-                              List[Dict[str, torch.Tensor]]],
-              cache_index: Union[int, torch.Tensor],
-              block_tables: torch.Tensor,
+              causal: bool = True,
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_cache: Optional[Union[Dict[str, torch.Tensor],
+                                       List[Dict[str, torch.Tensor]]]]
+              = None,
+              cache_index: Union[int, torch.Tensor, None] = None,
+              block_tables: Optional[torch.Tensor] = None,
               qctx: Optional[QuantCtx] = None,
               calibrate_kv: bool = False,
               kv_lengths: Optional[torch.Tensor] = None,
+              name: str = "attn",
               ) -> Tuple[torch.Tensor, Any]:
-    """Causal GQA attention over a paged KV cache (``"k_pages"`` key):
+    """GQA attention → (output, new cache).
+
+    With no ``kv_cache`` (ViT): projections named ``{name}/q|k|v|o``
+    and ``_sdpa`` over the sequence itself (``causal`` or not), no RoPE
+    (the LM's cacheless forward, which rotates, comes with A6); the new
+    cache is None.
+
+    With a paged KV cache (``"k_pages"`` key; the LM, always causal):
     the new K/V are written into the block-table pages, then every query
     reads the pages back through the paged-attention kernel.
     ``cache_index`` is an int position shared by the batch (prefill) or
@@ -374,6 +524,12 @@ def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
     rows of kv heads ``[i·n_kv/tp, (i+1)·n_kv/tp)`` (and their query
     groups) and ``kv_cache`` is the list of the shards' own pools.  The
     dense caches come with a later slice (ROADMAP A5)."""
+    if kv_cache is None:
+        if rope is not None:
+            raise ValueError("RoPE without a KV cache is not ported")
+        return _attention_no_cache(p, x, n_heads=n_heads, n_kv=n_kv,
+                                   causal=causal, qctx=qctx,
+                                   name=name), None
     parts = _shard_inputs(p, qctx)
     caches = shards(kv_cache)
     tp = len(parts)

@@ -232,12 +232,37 @@ def test_forced_boundary_of_own_input_is_the_boundary(tiny, cut):
                                  device="cpu")
     x = _x(seed=4)
     blob, qp = eng.boundary(eng.edge_forward(x))
-    forced, fqp = eng.forced_boundary(eng.last_edge_input(x))
+    h = eng.last_edge_input(x)
+    forced, fqp = eng.boundary(eng.last_edge_trace(h)[0])
     assert torch.equal(forced, blob)
     assert torch.equal(fqp.scale, qp.scale)
     assert torch.equal(fqp.zero_point, qp.zero_point)
     other = eng.last_edge_input(_x(seed=5))
-    assert not torch.equal(eng.forced_boundary(other)[0], blob)
+    assert not torch.equal(
+        eng.boundary(eng.last_edge_trace(other)[0])[0], blob)
+
+
+@pytest.mark.parametrize("cut", ["conv1", "conv2", "head"])
+def test_last_edge_trace_goes_on_from_the_forced_lattices(tiny, cut):
+    """Each segment of the tiny CNN holds one static lattice, its input's.
+    Forced with its own lattices (and scales) the trace is the plain run,
+    exactly; forced with another input's, the recorded lattice is still
+    its own input's and the output is the other input's."""
+    eng = TC.CollaborativeEngine(tiny[1], cut, calib_batches=[_x(seed=7)],
+                                 device="cpu")
+    x = _x(seed=4)
+    h, h_other = eng.last_edge_input(x), eng.last_edge_input(_x(seed=5))
+    z, lats = eng.last_edge_trace(h)
+    assert len(lats) == 1 and lats[0].dtype == torch.int8
+    assert torch.equal(z, eng.edge_forward(x))
+    z_own, lats_own = eng.last_edge_trace(h, force=lats,
+                                          scales=dict(eng.act_scales))
+    assert torch.equal(z_own, z) and torch.equal(lats_own[0], lats[0])
+    z_other, lats_other = eng.last_edge_trace(h_other)
+    assert not torch.equal(lats_other[0], lats[0])
+    z_forced, lats_forced = eng.last_edge_trace(h, force=lats_other)
+    assert torch.equal(lats_forced[0], lats[0])
+    assert torch.equal(z_forced, z_other)
 
 
 def test_engine_without_device_raises_when_no_card(tiny, monkeypatch):

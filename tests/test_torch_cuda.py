@@ -5,15 +5,21 @@ cloud tensor-parallel over two shards of the card) on CUDA against the
 same engine on the CPU, sampled serving on the card (threefry keys,
 uniforms and draws equal to the CPU's, sampled streams deterministic
 and equal to the CPU's, ``temperature=0`` equal to the greedy stream),
-and the paper's CNN split inference: AlexNet's collaborative engine on
-the card against the CPU, and the CNN layers' f32 products in true f32
-with the caller's TF32 flags left as they were.
+and the collaborative image models: AlexNet's, a SMOKE ResNet's and a
+SMOKE ViT's engines on the card against the CPU (through
+``chip_smoke._cnn_card_vs_cpu``, the check the script's ``cnn_path``
+runs), and the CNN and vision layers' f32 products in true f32 with the
+caller's TF32 flags left as they were.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine with the card alone:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
+import dataclasses
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -31,11 +37,22 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.models import layers as TLY  # noqa: E402
 from repro_torch.models import legacy as TL  # noqa: E402
+from repro_torch.models import resnet as TR  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models import vit as TV  # noqa: E402
 from repro_torch.serve import engine as TE  # noqa: E402
 from repro_torch.serve import sampling as SS  # noqa: E402
 
 CFG = get_arch("deepseek-7b").smoke
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
@@ -909,42 +926,91 @@ def test_cnn_layers_on_card_are_true_f32_and_restore_tf32(cuda, tf32,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tf32", [True, False])
+def test_vision_layers_on_card_are_true_f32_and_restore_tf32(cuda, tf32,
+                                                             monkeypatch):
+    """ViT's patch embedding, a block (both of ``_sdpa``'s products and
+    the MLP) and its head, and ResNet's head, on the card with the
+    caller's TF32 flags on or off: within 1e-5 of max |f64 CPU|, and the
+    flags as the caller left them."""
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    monkeypatch.setattr(mm, "allow_tf32", tf32)
+    monkeypatch.setattr(cudnn, "allow_tf32", tf32)
+    vcfg = dataclasses.replace(get_arch("vit-s16").full, n_layers=1,
+                               dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    vp = TV.init_vit(g, vcfg, device="cpu")
+    for k in ("ln1", "ln2"):
+        vp["blocks"][k]["b"] += 0.1
+    rp = TR.init_resnet(g, get_arch("resnet-18").full, device="cpu")["head"]
+    rp["b"] += torch.randn(rp["b"].shape, generator=g)
+    on_card = TV.make_segments(tree_map(lambda t: t.cuda(), vp), vcfg)
+    in_f64 = TV.make_segments(tree_map(lambda t: t.double(), vp),
+                              dataclasses.replace(vcfg, dtype=torch.float64))
+
+    def check(seg, seg64, x):
+        want = seg64.apply(seg64.params, x.double())
+        got = seg.apply(seg.params, x.cuda())
+        assert (mm.allow_tf32, cudnn.allow_tf32) == (tf32, tf32)
+        err = (got.cpu().double() - want).abs().max() / want.abs().max()
+        assert err < 1e-5, (seg.name, float(err))
+        return want.float()
+
+    x = torch.rand(4, 224, 224, 3, generator=g)
+    for seg, seg64 in zip(on_card.segments, in_f64.segments):
+        x = check(seg, seg64, x)                 # patch, the block, head
+    head = TC.Segment("resnet head", TR._head, tree_map(torch.Tensor.cuda,
+                                                        rp))
+    check(head, TC.Segment("f64", TR._head, tree_map(torch.Tensor.double,
+                                                     rp)),
+          torch.randn(4, 7, 7, 512, generator=g))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("cut", ["conv2", "conv5"])
 def test_alexnet_engine_on_card_matches_cpu(cuda, cut):
     """AlexNet's collaborative engine, the same weights and calibration
-    batches on the card and on the CPU, each device calibrating its own:
-    blob bytes, download bytes and zero points equal; scales to rtol
-    1e-4; the fp32 model within 1e-4 of max |CPU|; the boundary lattice
-    of the same input to the last edge segment (the card's) at most one
-    step apart on at most 5 % of elements (cuDNN and oneDNN sum a conv in
-    other orders; end to end each static lattice of the edge passes a
-    flipped step on, two steps at ``conv5``); the INT8 outputs to
-    relative L2 0.05."""
+    batches on the card and on the CPU, each device calibrating its own,
+    checked by ``chip_smoke._cnn_card_vs_cpu`` (its docstring lists the
+    checks and the bounds beside them: blob, download bytes and zero
+    points equal; scales to rtol 1e-4; the fp32 model within 1e-4 of max
+    |CPU|; the boundary lattice of one float tensor equal; the last edge
+    segment's lattices, teacher-forced one by one, at most one step apart
+    on at most 5 % of elements — end to end each static lattice of the
+    edge passes a flipped step on, two steps at ``conv5``; the segment's
+    float output and the INT8 outputs to relative L2 0.05)."""
     params = TL.init_alexnet(torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.RandomState(0)
     calib = [torch.tensor(rng.rand(4, 227, 227, 3).astype(np.float32))
              for _ in range(2)]
     x = torch.tensor(rng.rand(2, 227, 227, 3).astype(np.float32))
-    runs = []
-    for dev in ("cpu", "cuda"):
-        m = TL.alexnet_segments(tree_map(lambda t: t.to(dev), params))
-        eng = TC.CollaborativeEngine(m, cut, device=dev,
-                                     calib_batches=calib)
-        y, rec = eng.infer(x)
-        runs.append((eng, rec, y.cpu(), m.full_apply(x.to(dev)).cpu()))
-    (ce, crec, cy, cfull), (ge, grec, gy, gfull) = runs
-    h = ge.last_edge_input(x)
-    blobs = [e.forced_boundary(h)[0].cpu().int() for e in (ce, ge)]
-    assert grec.blob_bytes == crec.blob_bytes == blobs[0].numel() + 8
-    assert ge.edge_download_bytes == ce.edge_download_bytes
-    assert sorted(ge.act_scales) == sorted(ce.act_scales)
-    for k, qp in ce.act_scales.items():
-        torch.testing.assert_close(ge.act_scales[k].scale.cpu(), qp.scale,
-                                   rtol=1e-4, atol=0)
-        assert torch.equal(ge.act_scales[k].zero_point.cpu(),
-                           qp.zero_point)
-    assert (gfull - cfull).abs().max() <= 1e-4 * cfull.abs().max()
-    steps = (blobs[1] - blobs[0]).abs()
-    assert steps.max() <= 1 and (steps > 0).float().mean() <= 0.05
-    rel = torch.linalg.norm(gy - cy) / torch.linalg.norm(cy)
-    assert torch.isfinite(gy).all() and rel < 0.05
+    model = TL.alexnet_segments(tree_map(lambda t: t.cuda(), params))
+    _chip_smoke()._cnn_card_vs_cpu(model, cut, [c.cuda() for c in calib],
+                                   x.cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,cut", [("resnet-152", "s2b0/body"),
+                                      ("resnet-18", "head"),
+                                      ("vit-s16", "blk1/ffn"),
+                                      ("deit-b", "blk1/ffn")])
+def test_vision_engine_on_card_matches_cpu(cuda, arch, cut):
+    """A SMOKE ResNet's and ViT's collaborative engine on the card
+    against the CPU, teacher-forced at the last edge segment, by the
+    check AlexNet's test and ``chip_smoke.py``'s ``cnn_path`` run
+    (``chip_smoke._cnn_card_vs_cpu``); the ViT edges have two blocks
+    under one set of calibration names."""
+    cfg = get_arch(arch).smoke
+    mod, init = ((TR, TR.init_resnet) if arch.startswith("resnet")
+                 else (TV, TV.init_vit))
+    params = init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    model = mod.make_segments(tree_map(lambda t: t.cuda(), params), cfg)
+    rng = np.random.RandomState(1)
+    calib = [torch.tensor(rng.rand(4, cfg.img_res, cfg.img_res,
+                                   3).astype(np.float32)).cuda()
+             for _ in range(2)]
+    x = torch.tensor(rng.rand(3, cfg.img_res, cfg.img_res,
+                              3).astype(np.float32)).cuda()
+    res = _chip_smoke()._cnn_card_vs_cpu(model, cut, calib, x)
+    if arch.startswith(("vit", "deit")):
+        assert res["act_scale_names"] == 7

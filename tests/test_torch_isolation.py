@@ -36,7 +36,11 @@ assert {"repro_torch.kernels.ops", "repro_torch.kernels.ref",
         "repro_torch.kernels.int8_matmul",
         "repro_torch.serve.spec", "repro_torch.launch.mesh",
         "repro_torch.launch.shardings",
-        "repro_torch.serve.sharding"} <= set(names)
+        "repro_torch.serve.sharding", "repro_torch.models.resnet",
+        "repro_torch.models.vit", "repro_torch.configs.resnet18",
+        "repro_torch.configs.resnet152", "repro_torch.configs.vit_s16",
+        "repro_torch.configs.vit_h14",
+        "repro_torch.configs.deit_b"} <= set(names)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print(len(names))

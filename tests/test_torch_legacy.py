@@ -12,7 +12,8 @@ forward runs in ``tests/test_torch_cnn_engines.py`` at batch 1 and two cuts.
 
 Compared exactly: every ``LayerGraph`` node (name, op, inputs, shape,
 FLOPs, parameter elements), the candidate lists, Algorithm 1's pick and
-every row at the Table 3 and quickstart bandwidths
+every row at the Table 3 and quickstart bandwidths (ResNet-18's Table 3
+row too; its model is in ``tests/test_torch_vision.py``)
 (``tests/test_torch_collab.py`` holds the parameter-tree quantizers).
 With a tolerance: ``conv2d``, ``dense``, ``lrn`` and ``maxpool2d`` to
 1e-5 × max |ref| (XLA and oneDNN sum in other orders; the fake-quant
@@ -35,18 +36,23 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import autotune as JA  # noqa: E402
 from repro.core import costmodel as JCM  # noqa: E402
 from repro.core import partition as JP  # noqa: E402
+from repro.configs import get_arch as jget  # noqa: E402
 from repro.models import layers as JLY  # noqa: E402
 from repro.models import legacy as JL  # noqa: E402
+from repro.models import resnet as JR  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs import get_arch as tget  # noqa: E402
 from repro_torch.core import autotune as TA  # noqa: E402
 from repro_torch.core import costmodel as TCM  # noqa: E402
 from repro_torch.core import partition as TP  # noqa: E402
 from repro_torch.launch.quickstart import BANDWIDTHS_KBPS  # noqa: E402
 from repro_torch.models import layers as TLY  # noqa: E402
 from repro_torch.models import legacy as TL  # noqa: E402
+from repro_torch.models import resnet as TR  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 NETS = ("alexnet", "vgg16", "googlenet")
+TABLE3_NETS = NETS + ("resnet-18",)
 LAYER_TOL = 1e-5
 FORWARD_TOL = 2e-4
 
@@ -231,11 +237,20 @@ def test_graph_and_candidates_match(net):
     assert tg.total_param_elems() == jg.total_param_elems()
 
 
-@pytest.mark.parametrize("net", NETS)
+def _table3_graphs(net):
+    """(JAX graph, port graph) of a Table 3 net at batch 1: the paper's
+    CNNs from ``legacy``, ResNet-18 from its config."""
+    if net == "resnet-18":
+        return (JR.make_graph(jget(net).full, batch=1),
+                TR.make_graph(tget(net).full, batch=1))
+    return getattr(JL, f"{net}_graph")(), getattr(TL, f"{net}_graph")()
+
+
+@pytest.mark.parametrize("net", TABLE3_NETS)
 def test_algorithm1_matches(net):
     """Every row Algorithm 1 builds, and its pick, at the net's Table 3
     bandwidth and at the quickstart's, equal JAX's."""
-    jg, tg = getattr(JL, f"{net}_graph")(), getattr(TL, f"{net}_graph")()
+    jg, tg = _table3_graphs(net)
     jt = JA.AutoTuner(jg, JCM.EDGE_TX2_CLASS, JCM.CLOUD_TITANXP_CLASS)
     tt = TA.AutoTuner(tg, TCM.EDGE_TX2_CLASS, TCM.CLOUD_TITANXP_CLASS)
     table3 = _chip_smoke().TABLE3_PICKS[net][0]
@@ -249,16 +264,16 @@ def test_algorithm1_matches(net):
                 == jt.speedup_vs_cloud_only(JCM.Channel.from_kbps(kbps)))
 
 
-@pytest.mark.parametrize("net", NETS)
+@pytest.mark.parametrize("net", TABLE3_NETS)
 def test_table3_picks_are_the_jax_packages(net):
     """``chip_smoke.py``'s constants are what the JAX package picks at
     the Table 3 bandwidths (not the paper's own cuts, which its cost
-    model does not reproduce), and the port picks the same."""
+    model does not reproduce: ResNet-18's is ``res4a``), and the port
+    picks the same."""
     kbps, pick = _chip_smoke().TABLE3_PICKS[net]
-    jt = JA.AutoTuner(getattr(JL, f"{net}_graph")(), JCM.EDGE_TX2_CLASS,
-                      JCM.CLOUD_TITANXP_CLASS)
-    tt = TA.AutoTuner(getattr(TL, f"{net}_graph")(), TCM.EDGE_TX2_CLASS,
-                      TCM.CLOUD_TITANXP_CLASS)
+    jg, tg = _table3_graphs(net)
+    jt = JA.AutoTuner(jg, JCM.EDGE_TX2_CLASS, JCM.CLOUD_TITANXP_CLASS)
+    tt = TA.AutoTuner(tg, TCM.EDGE_TX2_CLASS, TCM.CLOUD_TITANXP_CLASS)
     assert jt.tune(JCM.Channel.from_kbps(kbps))[0].point == pick
     assert tt.tune(TCM.Channel.from_kbps(kbps))[0].point == pick
 
