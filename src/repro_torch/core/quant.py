@@ -21,6 +21,7 @@ with training.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple
 
 import torch
@@ -71,15 +72,32 @@ class QuantParams:
         return arr.reshape(shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _range_divisor(device: torch.device, bits: int) -> torch.Tensor:
+    """Range_LP as a 0-dim f32 tensor on ``device``, made once per
+    (device, bits).  Torch on CUDA computes a division by a Python
+    number as a product with its reciprocal, one ulp off the quotient
+    now and then; by a tensor on the same device it divides, as its CPU
+    kernel and eager JAX do."""
+    return torch.tensor(float(2 ** bits - 1), dtype=torch.float32,
+                        device=device)
+
+
 def _minmax_to_qparams(t_min: torch.Tensor, t_max: torch.Tensor, *,
                        bits: int, signed: bool,
                        axis: Optional[int]) -> QuantParams:
-    """Thresholds → (scale, zero_point), the paper's "Step 1"."""
+    """Thresholds → (scale, zero_point), the paper's "Step 1".  An f32
+    span is divided by ``_range_divisor``, so the same span gives the
+    same scale on the card and on the CPU (eager JAX's quotient; jitted
+    XLA multiplies by the reciprocal instead).  A bf16 or f16 span keeps
+    the Python divisor, which both devices' kernels turn into a product
+    with its reciprocal."""
     t_min = torch.clamp(t_min, max=0.0)   # keep 0 representable
     t_max = torch.clamp(t_max, min=0.0)
     range_lp = float(2 ** bits - 1)
     span = torch.clamp(t_max - t_min, min=1e-12)
-    scale = span / range_lp
+    scale = span / (_range_divisor(span.device, bits)
+                    if span.dtype == torch.float32 else range_lp)
     qmin = -(2 ** (bits - 1)) if signed else 0
     zero_point = torch.round(qmin - t_min / scale)
     zero_point = torch.clamp(zero_point, qmin, qmin + range_lp)

@@ -1,7 +1,7 @@
 """Serving launcher of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
-        --collaborative --cut auto --bandwidth 250 --spec-k auto
+        --collaborative --cut auto --bandwidth 250 --spec-k auto --adaptive
 
 Cloud-only mode runs the batched engine over a paged fp KV cache (the
 port's stand-in for the reference's dense cache, which the JAX suite
@@ -9,7 +9,10 @@ shows it equals); ``--collaborative`` splits the stack at the
 (auto-tuned or given) block and runs the paper's INT8-edge / fp-cloud
 pipeline over a simulated wireless channel; ``--spec-k`` turns its
 decode into speculative draft/verify rounds (an int, or ``auto`` for
-the cost model's pick).  ``--temperature``/``--top-p``/``--sample-seed``
+the cost model's pick, which keeps self-correcting from the measured
+acceptance between requests); ``--adaptive`` closes the whole tuning
+loop online — link telemetry re-tunes the draft length between rounds
+and the cut layer at admission boundaries.  ``--temperature``/``--top-p``/``--sample-seed``
 sample instead of greedy decode (collaborative mode only): the verify
 becomes exact rejection sampling against the cloud distribution, and
 request i samples with seed ``sample-seed + i``, so every stream replays
@@ -60,7 +63,12 @@ def main(argv=None):
                     help="wireless round-trip time in ms")
     ap.add_argument("--spec-k", default="1",
                     help="speculative draft length: an int, or 'auto' to "
-                         "pick it from the channel with the cost model")
+                         "pick it from the channel with the cost model and "
+                         "keep self-correcting from measured acceptance")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="online control loop: telemetry re-tunes spec_k "
+                         "between rounds and the cut layer at admission "
+                         "boundaries")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="decode temperature; 0 keeps the greedy path, >0 "
                          "turns verify into exact rejection sampling "
@@ -123,9 +131,13 @@ def main(argv=None):
               f"-> edge blocks 0..{cut_layer}")
     else:
         cut_layer = int(args.cut)
-    eng = CollaborativeServingEngine(params, cfg, cut_layer=cut_layer,
-                                     channel=channel, max_len=max_len,
-                                     spec_k=spec_k, device=dev)
+    if args.adaptive and cut_layer > cfg.n_layers - 2:
+        cut_layer = cfg.n_layers - 2
+        print(f"adaptive mode: clamping cut to {cut_layer} so every "
+              f"candidate partition keeps a cloud block")
+    eng = CollaborativeServingEngine(
+        params, cfg, cut_layer=cut_layer, channel=channel, max_len=max_len,
+        spec_k=spec_k, policy="auto" if args.adaptive else None, device=dev)
     if sampling is not None:
         print(f"sampling: temperature={args.temperature} "
               f"top_p={args.top_p} seeds {args.sample_seed}.."
@@ -145,6 +157,11 @@ def main(argv=None):
         print(f"speculative rounds: spec_k={eng.spec_k}, "
               f"{eng.stats.spec_rounds} rounds, draft acceptance "
               f"{eng.stats.acceptance_rate():.0%}")
+    if eng.policy is not None:
+        print(f"control loop: spec_k={eng.spec_k} cut={eng.cut} "
+              f"(switches: k={eng.stats.spec_k_switches}, "
+              f"cut={eng.stats.cut_switches}; draft acceptance "
+              f"{eng.stats.acceptance_rate():.0%})")
     print("first output:", outs[0])
 
 

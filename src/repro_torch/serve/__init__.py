@@ -1,2 +1,38 @@
 """Serving engines of the port: the continuous-batching scheduler, the
-paged KV pool, the cloud-only engine and the collaborative engine."""
+paged KV pool, the cloud-only and collaborative engines, the online
+tuning policy, and the overload and fault-injection layers.
+
+    scheduler   slot/bucket/round continuous batching (``_SlotEngine``)
+    kvcache     paged KV bookkeeping (``PageAllocator``, demand growth)
+    transport   framing, wire accounting, link telemetry, drifting links
+    faults      seeded/scripted channel faults and pool pressure
+    policy      online (cut_layer, spec_k) re-tuning + deadline admission
+    overload    demand paging / preemption / shedding hooks
+    engine      ``ServingEngine`` / ``CollaborativeServingEngine``
+
+``from repro_torch.serve import X`` resolves the public names of the
+reference's ``repro.serve`` that the port has, on first use: the
+models import ``serve.sharding``, so importing the engines here
+eagerly would be circular.
+"""
+import importlib
+
+_EXPORTS = {
+    "ServingEngine": "cloud", "CollaborativeServingEngine": "engine",
+    "PageAllocator": "kvcache", "PoolExhausted": "kvcache",
+    "ServeStats": "stats", "Request": "scheduler",
+    "SamplingParams": "sampling", "Transport": "transport",
+    "LinkTelemetry": "transport", "DriftingChannel": "transport",
+    "FaultyChannel": "faults", "FaultOutcome": "faults",
+    "PressureSchedule": "faults", "AdaptivePolicy": "policy",
+    "DeadlineAdmission": "policy", "Decision": "policy"}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
+                   name)

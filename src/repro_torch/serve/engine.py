@@ -1,30 +1,45 @@
 """Collaborative (cloud-edge) LM serving — the paper's mode — in PyTorch.
 
-Counterpart of ``repro.serve.engine.CollaborativeServingEngine`` at a
-fixed cut.  The INT8 edge prefix
-(the first ``cut_layer + 1`` blocks on the fake-quant lattice) and the
-fp cloud suffix each own a paged KV cache covering only their block
-sub-range, over **one shared block table**.  Each prefill ships the
-prompt's per-row Eq.(1) boundary blob uplink; each decode step ships a
-per-row-quantized ``[B, 1, D]`` boundary delta uplink and the token
-downlink, charged to ``ServeStats`` byte for byte as the JAX engine
-charges them.  ``spec_k = k > 1`` turns each decode step into a
-speculative draft/verify round (``serve.spec``); ``spec_k=1`` is the
-serial step, bit for bit, and ``spec_k="auto"`` takes the starting k from
-``autotune.spec_k_for_lm``.  ``a_bits=None`` with fp pages on both sides
-is the lossless configuration, whose greedy stream does not depend on
-the cut.  ``mesh`` (``launch.mesh.make_serve_mesh``) runs the cloud
-suffix, its head and its page pool tensor-parallel over the mesh's
-``model`` shards (``serve.sharding``); the edge half runs once, on the
-mesh's first device.  Wire bytes and ``ServeStats`` do not depend on the
-mesh.  A request with ``SamplingParams(temperature > 0)`` is sampled
-(``serve.sampling``): its prefill, serial steps and rounds run the
-``*_sample`` phases, and a sampled round also ships the graded
-positions' f32 draft distributions uplink; all-greedy traffic never
-enters a sampled phase.
+Counterpart of ``repro.serve.engine.CollaborativeServingEngine``.  The
+INT8 edge prefix (the first ``cut_layer + 1`` blocks on the fake-quant
+lattice) and the fp cloud suffix each own a paged KV cache covering
+only their block sub-range, over **one shared block table**.  Each
+prefill ships the prompt's per-row Eq.(1) boundary blob uplink; each
+decode step ships a per-row-quantized ``[B, 1, D]`` boundary delta
+uplink and the token downlink, charged to ``ServeStats`` byte for byte
+as the JAX engine charges them.  ``spec_k = k > 1`` turns each decode
+step into a speculative draft/verify round (``serve.spec``);
+``spec_k=1`` is the serial step, bit for bit.  ``a_bits=None`` with fp
+pages on both sides is the lossless configuration, whose greedy stream
+does not depend on the cut — nor on a cut or k switch mid-stream, nor
+on preemption.
 
-Options the slice does not run raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+The control loop (``serve.policy``): ``policy="auto"`` (or an object
+with ``decide``) re-tunes the draft length between rounds and the cut
+at request-admission boundaries from link telemetry — a cut switch
+drains the live slots first and takes its weights from the
+prequantized ``_CutBank``; a raise out of k = 1 with live slots
+rebuilds their draft caches instead of draining.  ``spec_k="auto"``
+alone picks the starting k with the cost model and keeps correcting it
+from the measured acceptance between requests.  Draft machinery and
+page headroom are provisioned once for the largest k any controller
+may pick (``_spec_max``).
+
+Overload (``serve.overload``): ``demand_paged`` admits on the prompt's
+pages and grows claims as sequences cross page boundaries, preempting
+the lowest-priority request when the pool runs dry (its resume replays
+prompt plus committed tokens in one prefill); ``pressure`` squeezes the
+pool on the channel's simulated clock (``faults.PressureSchedule``);
+``admission="deadline"`` sheds requests predicted to miss their
+deadline (``policy.DeadlineAdmission``).
+
+``mesh`` (``launch.mesh.make_serve_mesh``) runs the cloud suffix, its
+head and its page pool tensor-parallel over the mesh's ``model`` shards
+(``serve.sharding``), and the auto policy prices the cloud as a
+TP-scaled device.  A request with ``SamplingParams(temperature > 0)``
+is sampled (``serve.sampling``); all-greedy traffic never enters a
+sampled phase.  The dense cache layouts (``edge_paged``/``cloud_paged``
+false) raise ``NotImplementedError`` naming ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -35,42 +50,42 @@ import torch
 
 from repro_torch.bridge import tree_map
 from repro_torch.core.autotune import spec_k_for_lm
-from repro_torch.core.costmodel import Channel
+from repro_torch.core.costmodel import CLOUD_TITANXP_CLASS, Channel
 from repro_torch.device import DeviceLike
 from repro_torch.launch.mesh import engine_device
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as TF
 from repro_torch.serve.cloud import ServingEngine
+from repro_torch.serve.faults import PressureSchedule
 from repro_torch.serve.kvcache import _PagedPool
+from repro_torch.serve.overload import _OverloadMixin
 from repro_torch.serve.phases import _SplitPhases
-from repro_torch.serve.policy import _CutBank
+from repro_torch.serve.policy import (AdaptivePolicy, DeadlineAdmission,
+                                      _CutBank)
 from repro_torch.serve.scheduler import _SlotEngine
-from repro_torch.serve.sharding import place_collab_engine
+from repro_torch.serve.sharding import place_collab_engine, tp_size
 from repro_torch.serve.spec import _SpecDraftMixin
 from repro_torch.serve.transport import (_MSG_BYTES, _QP_BYTES, _TOK_BYTES,
-                                         Transport)
+                                         LinkTelemetry, Transport)
 
 Params = Any
 
 __all__ = ["ServingEngine", "CollaborativeServingEngine"]
 
 
-def _unported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"CollaborativeServingEngine({option}) is not ported yet "
-        f"(ROADMAP {item})")
-
-
-class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
-                                 _SlotEngine):
+class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
+                                 _SplitPhases, _SlotEngine):
     """Paper mode with incremental decode over split, shared-table paged
-    KV caches (see the module docstring) on ``device`` (default
-    ``"cuda"``), its cloud half tensor-parallel over the shards of
-    ``mesh`` when one is given (its first device is then the engine's
-    device; ``data > 1`` raises, ROADMAP A16).  ``spec_k="auto"`` picks
-    the starting k with the cost model at ``spec_acceptance``; the
-    reference's self-correction of k from measured acceptance comes with
-    the adaptive policy (ROADMAP A12)."""
+    KV caches and the online tuning loop (see the module docstring), on
+    ``device`` (default ``"cuda"``), its cloud half tensor-parallel over
+    the shards of ``mesh`` when one is given (its first device is then
+    the engine's device; ``data > 1`` raises, ROADMAP A16).
+
+    ``candidate_cuts`` overrides the auto policy's cut grid {0, mid,
+    last-1} ∪ {cut_layer}; without a policy it puts extra cuts in the
+    bank for externally scripted re-partitions (``_set_cut``).
+    ``timed`` waits for the device after each prefill and round and adds
+    their wall times to ``stats.prefill_s`` / ``stats.decode_s``."""
 
     def __init__(self, params: Params, cfg: TF.LMConfig, *, cut_layer: int,
                  channel: Optional[Channel] = None, max_len: int = 128,
@@ -79,40 +94,76 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                  cloud_paged: bool = True, cloud_int8: bool = True,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  spec_k: Union[int, str] = 1, spec_acceptance: float = 0.8,
-                 policy=None, demand_paged: bool = False,
-                 pressure=None, admission=None, mesh=None,
+                 policy: Union[AdaptivePolicy, str, None] = None,
+                 candidate_cuts: Optional[Tuple[int, ...]] = None,
+                 demand_paged: bool = False,
+                 pressure: Optional[PressureSchedule] = None,
+                 admission: Union[DeadlineAdmission, str, None] = None,
+                 mesh=None, timed: bool = False,
                  device: DeviceLike = None):
-        for name, value, item in (("policy", policy, "A12"),
-                                  ("demand_paged", demand_paged, "A12"),
-                                  ("pressure", pressure, "A12"),
-                                  ("admission", admission, "A12")):
-            if value:
-                raise _unported(f"{name}=...", item)
         if not (edge_paged and cloud_paged):
-            raise _unported("edge_paged/cloud_paged=False", "A5")
+            raise NotImplementedError(
+                "CollaborativeServingEngine(edge_paged/cloud_paged=False) "
+                "is not ported yet (ROADMAP A5)")
         if not 0 <= cut_layer < cfg.n_layers:
             raise ValueError(
                 f"cut_layer {cut_layer} outside [0, {cfg.n_layers})")
         dev = engine_device(mesh, device)
         super().__init__(cfg, max_batch=max_batch, max_len=max_len,
-                         device=dev)
+                         device=dev, timed=timed)
         self.transport = Transport(channel)
-        if spec_k == "auto":
-            spec_k = spec_k_for_lm(cfg, cut_layer, batch=max_batch,
-                                   channel=self.transport.channel,
-                                   acceptance=spec_acceptance)[0].k
-        if not (isinstance(spec_k, int) and spec_k >= 1):
-            raise ValueError(f"spec_k must be an int >= 1 or 'auto', got "
-                             f"{spec_k!r}")
-        # the draft length is fixed for the engine's life (online k
-        # switches come with the adaptive policy, ROADMAP A12), so the
-        # draft machinery and the pages' headroom are sized for it
-        self.spec_k = spec_k
         self.a_bits = a_bits
         self.edge_int8 = edge_int8
         self.cloud_int8 = cloud_int8
         self.page_size = page_size
         self.mesh = mesh
+        # the channel the offline tuners assume before telemetry locks on
+        # (a DriftingChannel or FaultyChannel contributes its current
+        # phase — the site survey)
+        initial_ch = self.transport.channel
+        initial_ch = getattr(initial_ch, "phase", initial_ch)
+
+        spec_auto = spec_k == "auto"
+        if spec_auto:
+            spec_k = spec_k_for_lm(cfg, cut_layer, batch=max_batch,
+                                   channel=initial_ch,
+                                   acceptance=spec_acceptance)[0].k
+        if not (isinstance(spec_k, int) and spec_k >= 1):
+            raise ValueError(f"spec_k must be an int >= 1 or 'auto', got "
+                             f"{spec_k!r}")
+        self.spec_k = spec_k
+
+        # -- control plane ---------------------------------------------------
+        if policy == "auto":
+            if cut_layer > cfg.n_layers - 2:
+                raise ValueError("the adaptive policy needs at least one "
+                                 "cloud block at every candidate cut")
+            cuts = candidate_cuts or tuple(sorted(
+                {0, (cfg.n_layers - 1) // 2, cfg.n_layers - 2, cut_layer}))
+            # a TP mesh scales the cloud term of the policy's cost grid,
+            # so a bigger mesh discovers its own edge-ward optimal cut
+            policy = AdaptivePolicy(cfg, batch=max_batch, cuts=cuts,
+                                    ks=(1, 2, 4, 8),
+                                    cloud=CLOUD_TITANXP_CLASS.scaled(
+                                        tp_size(mesh)),
+                                    fallback_channel=initial_ch,
+                                    acceptance_prior=spec_acceptance)
+        elif policy is None and spec_auto:
+            # spec_k="auto" alone: k-only self-correction between requests
+            policy = AdaptivePolicy(cfg, batch=max_batch, cuts=None,
+                                    ks=(1, 2, 4, 8, 16),
+                                    fallback_channel=initial_ch,
+                                    acceptance_prior=spec_acceptance,
+                                    k_between_requests_only=True)
+        self.policy = policy or None
+        if (self.policy is not None and self.policy.cuts is not None
+                and cut_layer not in self.policy.cuts):
+            raise ValueError(f"cut_layer {cut_layer} not in candidate cuts "
+                             f"{self.policy.cuts}")
+        # largest k any controller may pick — draft machinery and page
+        # headroom are provisioned for it once, up front
+        self._spec_max = self.spec_k if self.policy is None \
+            else max(self.spec_k, *self.policy.ks)
 
         params = tree_map(lambda t: t.to(dev), params)
         self.embed = params["embed"]
@@ -126,12 +177,23 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self._edge_qctx = None if a_bits is None else \
             ML.QuantCtx(a_bits=a_bits, quantize_weights=False, act_axis=0)
         deploy_qctx = None if a_bits is None else ML.QuantCtx(a_bits=a_bits)
-        # one shared page pool / block table for both split caches
+        # one shared page pool / block table for every split cache; its
+        # geometry is cut-independent, so it survives re-partitions
         self._pool = _PagedPool.build(max_batch, max_len, page_size,
                                       num_pages, dev)
-        self._bank = _CutBank(params, cfg, {cut_layer}, deploy_qctx,
-                              drafts=spec_k > 1)
-        self._set_cut(cut_layer)
+        # overload robustness (demand paging / pressure faults / deadline
+        # admission): hook implementations live in serve.overload
+        self._init_overload(cfg, demand_paged=demand_paged,
+                            pressure=pressure, admission=admission,
+                            max_batch=max_batch, initial_ch=initial_ch,
+                            spec_acceptance=spec_acceptance, a_bits=a_bits)
+        # every cut the engine may ever serve goes into the bank up front
+        bank_cuts = {cut_layer} | set(candidate_cuts or ())
+        if self.policy is not None and self.policy.cuts is not None:
+            bank_cuts |= set(self.policy.cuts)
+        self._bank = _CutBank(params, cfg, bank_cuts, deploy_qctx,
+                              drafts=self._spec_max > 1)
+        self._set_cut(cut_layer, count=False)
         # per-slot sampling state (serve.sampling): host mirrors of each
         # slot's (temperature, top_p, seed), refreshed at admission; the
         # device copies are cached until the slot mix changes
@@ -140,10 +202,28 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self._samp_s = np.zeros((max_batch,), np.int64)
         self._samp_dev: Optional[Tuple[torch.Tensor, ...]] = None
 
-    def _set_cut(self, cut: int) -> None:
-        """Partition at ``cut``: weights come out of the bank (views), the
-        split caches are allocated for the two layer sub-ranges, and on a
-        mesh the cloud half is placed on its shards."""
+    # -- wire plumbing -------------------------------------------------------
+    @property
+    def channel(self):
+        return self.transport.channel
+
+    @channel.setter
+    def channel(self, ch) -> None:
+        self.transport.channel = ch
+
+    @property
+    def telemetry(self) -> LinkTelemetry:
+        return self.transport.telemetry
+
+    # -- online re-tuning ----------------------------------------------------
+    def _set_cut(self, cut: int, *, count: bool = True) -> None:
+        """Partition at ``cut`` — only ever with no occupied slots
+        (construction, or the scheduler's drained admission boundary).
+        Weights come out of the bank (views); the split caches are
+        allocated anew for the two layer sub-ranges (their contents
+        belonged to retired requests); the page pool, block table and
+        telemetry carry over; on a mesh the new cloud half is placed on
+        its shards."""
         cfg = self.cfg
         self.cut = cut
         self.n_edge = cut + 1
@@ -151,6 +231,10 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         self.edge_blocks, self.cloud_blocks, self.draft_blocks = \
             self._bank.get(cut)
         n_pool = self._pool.allocator.num_pages
+        # the old cut's caches go before the new ones are allocated
+        self._edge_cache = self._cloud_cache = None
+        if self._spec_max > 1:
+            self._draft_cache = None
         self._edge_cache = TF.init_cache(
             cfg, self.max_batch, self.max_len, layers=self.n_edge,
             paged=True, quantized=self.edge_int8, page_size=self.page_size,
@@ -159,7 +243,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
             cfg, self.max_batch, self.max_len, layers=self.n_cloud,
             paged=True, quantized=self.cloud_int8, page_size=self.page_size,
             num_pages=n_pool, device=self.device)
-        if self.spec_k > 1:
+        if self._spec_max > 1:
             # the edge's draft model: the bank's INT8 copy of the cloud
             # suffix, over a draft cache in the edge's layout that shares
             # the block table
@@ -169,19 +253,38 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                 page_size=self.page_size, num_pages=n_pool,
                 device=self.device)
         place_collab_engine(self)
+        if count:
+            self.stats.cut_switches += 1
+
+    def _policy_tick(self, n_active: int) -> bool:
+        if self.policy is None:
+            return False
+        live = self._sched_active or {}
+        frac = (sum(1.0 for s in live if self._samp_t[s] > 0) / len(live)
+                if live else 0.0)
+        # the keyword only when sampled traffic is aboard: duck-typed
+        # policies that predate sampling keep working on greedy traffic
+        kw = {"sampled_frac": frac} if frac > 0.0 else {}
+        d = self.policy.decide(self.telemetry, cut=self.cut,
+                               spec_k=self.spec_k, **kw)
+        if d.spec_k != self.spec_k and not (
+                self.policy.k_between_requests_only and n_active > 0):
+            if d.spec_k > 1 and self.spec_k == 1 and n_active > 0:
+                # k = 1 rounds run the serial step and leave the draft
+                # cache stale for the live slots: rebuild it from their
+                # committed prefix instead of draining
+                self._rebuild_draft_caches()
+            self.spec_k = d.spec_k
+            self.stats.spec_k_switches += 1
+        if d.cut != self.cut:
+            if n_active:
+                self.stats.policy_holds += 1
+                return True          # re-partition barrier: drain first
+            self._set_cut(d.cut)
+        return False
 
     def _round_headroom(self) -> int:
-        return self.spec_k - 1
-
-    def _round_width(self) -> int:
-        return self.spec_k
-
-    def _admit_reserve(self, max_news: np.ndarray) -> np.ndarray:
-        """Positions past the prompt that admission reserves pages for:
-        the whole generation budget plus the speculative overshoot, so a
-        round's rejected tail never spills into another request's
-        pages."""
-        return max_news + self._round_headroom()
+        return self._spec_max - 1
 
     # -- sampling plumbing (serve.sampling) ---------------------------------
     def _note_samplings(self, slots, samplings) -> None:
@@ -239,6 +342,9 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
                                            self._cloud_cache, slots_d,
                                            bt_rows, cur, pos, plens_d)
         if self.spec_k > 1:
+            # requests served at k = 1 never draft (a later raise
+            # rebuilds their draft caches), so the draft prefill runs
+            # only while the engine drafts
             self._draft_prefill_impl(self.draft_blocks, blob, qp,
                                      self._draft_cache, slots_d, bt_rows,
                                      plens_d)
@@ -314,7 +420,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _SplitPhases,
         hits = int(np.minimum(counts[slots] - 1, k - 1).sum())
         self.stats.drafted_tokens += (k - 1) * n_active
         self.stats.draft_hits += hits
-        self.transport.telemetry.observe_round((k - 1) * n_active, hits)
+        self.telemetry.observe_round((k - 1) * n_active, hits)
         return cur, pos, toks, counts
 
     def _retire(self, slot):

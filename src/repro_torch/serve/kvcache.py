@@ -7,8 +7,14 @@ host as numpy and is copied to the device whenever it changes — a copy,
 never an alias, so host edits can never race a step still reading it.
 
 The pool's geometry depends only on ``(max_batch, max_len, page_size)``,
-never on the collaborative cut.  Demand paging (``ensure``) and the
-per-tenant accounting come with the overload and fleet slices.
+never on the collaborative cut, so a live re-partition keeps the
+allocator, the block table and every slot's claim.  A demand-paged
+engine reserves only a request's padded prompt plus one round of
+headroom at admission and grows the claim with ``ensure``; a growth the
+free list cannot cover raises ``PoolExhausted`` with nothing changed,
+the scheduler's cue to preempt a victim.  ``table_for`` comes with the
+resilient engine (ROADMAP A12b), the per-tenant accounting with the
+fleet (A13).
 """
 from __future__ import annotations
 
@@ -26,7 +32,13 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class PoolExhausted(RuntimeError):
-    """Typed "no free pages" failure of ``PageAllocator.alloc``."""
+    """Typed "no free pages" failure of ``PageAllocator.alloc``.
+
+    Subclasses ``RuntimeError`` so callers that catch the bare
+    exhaustion keep working; the overload-robust scheduler catches it
+    specifically — a mid-round exhaustion preempts a victim
+    (``scheduler._SlotEngine``), never crashes.  A failed ``alloc``
+    changes nothing."""
 
 
 class PageAllocator:
@@ -72,11 +84,14 @@ class PageAllocator:
 class _PagedPool:
     """Block table + allocator for one engine-side page pool.
 
-    A request's pages are claimed at admission — enough for its padded
-    prompt plus its generation budget — and returned the moment the
-    scheduler retires the slot.  The collaborative engine shares one
-    pool (one block table) across its edge-prefix and cloud-suffix
-    caches."""
+    A request's pages are claimed at admission — by default enough for
+    its padded prompt plus its generation budget and any speculative
+    headroom; a demand-paged engine claims the padded prompt plus one
+    round and grows the claim with ``ensure`` — and returned the moment
+    the scheduler retires (or preempts) the slot.  The collaborative
+    engine shares one pool (one block table) across its edge-prefix,
+    cloud-suffix and draft caches, so a verify's rollback is the same
+    length decrement on every cache."""
 
     def __init__(self, max_batch: int, pages_per_slot: int, num_pages: int,
                  page_size: int, device: torch.device):
@@ -148,6 +163,28 @@ class _PagedPool:
         width = max(1, _cdiv(int(padded_len), self.page_size))
         return self._copy(self.bt[np.asarray(slots)][:, :width])
 
+    def pages_held(self, slot: int) -> int:
+        return len(self._slot_pages.get(int(slot), ()))
+
+    def ensure(self, slot: int, n_positions: int) -> bool:
+        """Demand-grow ``slot``'s page claim to cover ``n_positions``
+        cache positions; returns True iff new pages were allocated (the
+        device table is then rebuilt on its next read).  Raises
+        ``PoolExhausted`` — with the slot's claim and block-table row
+        untouched — when the free list cannot cover the growth."""
+        s = int(slot)
+        pages = self._slot_pages.get(s)
+        if pages is None:
+            raise KeyError(f"slot {s} holds no pages")
+        need = _cdiv(int(n_positions), self.page_size)
+        if need <= len(pages):
+            return False
+        grown = self.allocator.alloc(need - len(pages))
+        self.bt[s, len(pages):need] = grown
+        pages.extend(grown)
+        self._dev = None
+        return True
+
     def retire(self, slot: int) -> None:
         pages = self._slot_pages.pop(int(slot), None)
         if pages is not None:
@@ -155,11 +192,22 @@ class _PagedPool:
             self.bt[slot, :] = 0
             self._dev = None
 
+    # -- pool-pressure observability -----------------------------------------
+    def free_pages(self) -> int:
+        """Allocatable pages on the free list right now."""
+        return self.allocator.num_free
+
+    def utilization(self) -> float:
+        """Fraction of allocatable pages claimed (the dump page is left
+        out of the denominator)."""
+        cap = self.allocator.num_pages - 1
+        return (cap - self.allocator.num_free) / max(cap, 1)
+
     def table_dev(self) -> torch.Tensor:
         """Block table on the device, trimmed to the pages in use
         (rounded up to a power of two), so a decode read costs
         O(allocated pages), not O(max_len).  Cached until the next
-        admit/retire."""
+        admit, ``ensure`` growth or retire."""
         if self._dev is None:
             used = max((len(p) for p in self._slot_pages.values()),
                        default=1)

@@ -29,13 +29,17 @@ draft proposes seeded categorical draws from its filtered distribution
 as extra uplink by the engine), and the verify grades by **rejection
 sampling** (``serve.sampling.grade_and_correct``) instead of argmax
 match, keeping the cloud's sampling distribution exact while greedy
-rows in the same batch commit the greedy verify's tokens.  The
-edge-only degradation and resync phases, sampled or not, come with
-ROADMAP A12.
+rows in the same batch commit the greedy verify's tokens.
+
+The draft length may change between rounds (the adaptive policy): the
+draft cache and every slot's page headroom are sized once for the
+largest k any controller may pick, and a raise out of k = 1 with live
+slots rebuilds their draft K/V from committed state
+(``_rebuild_draft_caches``).  The edge-only degradation and resync
+phases, sampled or not, come with ROADMAP A12b.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -59,16 +63,21 @@ class _SpecDraftMixin:
     zeroed block-table row, so their writes land in the dump page."""
 
     def _spec_fns(self, k: int):
-        """(draft, verify) phases for draft length ``k``."""
-        return (functools.partial(self._spec_draft_impl, k),
-                functools.partial(self._verify_impl, k))
+        """(draft, verify) phases for draft length ``k``.  Nothing is
+        compiled per k here (the reference jits one pair per k), so the
+        pair is made per round; each looks its phase method up when
+        called, so a wrapper installed on the engine (a profiler's, a
+        test's) sees every call, and the engine holds no reference to
+        itself (a freed engine's weights go at once)."""
+        return (lambda *a: self._spec_draft_impl(k, *a),
+                lambda *a: self._verify_impl(k, *a))
 
     def _spec_sample_fns(self, k: int):
         """Sampled twin of ``_spec_fns``: the (draft, rejection-sampling
         verify) pair for rounds carrying at least one temperature > 0
         slot.  Greedy rows ride along on the argmax branch."""
-        return (functools.partial(self._spec_draft_sample_impl, k),
-                functools.partial(self._verify_sample_impl, k))
+        return (lambda *a: self._spec_draft_sample_impl(k, *a),
+                lambda *a: self._verify_sample_impl(k, *a))
 
     def _draft_prefill_impl(self, blocks, blob, qp, cache, slots, bt_rows,
                             plens) -> None:

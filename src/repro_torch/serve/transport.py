@@ -1,8 +1,10 @@
 """Channel framing, wire accounting, and link telemetry for serving.
 
-Counterpart of ``repro.serve.transport`` (the ``Transport`` and
-``LinkTelemetry`` the slice needs; ``ReliableTransport`` and
-``DriftingChannel`` come with the robustness slice).  The framing
+Counterpart of ``repro.serve.transport``: ``Transport``,
+``LinkTelemetry`` (bandwidth, RTT, draft acceptance and the loss rate
+the lossy-link pricing reads) and ``DriftingChannel``, a channel whose
+conditions follow a schedule over simulated time (the checksum and the
+``ReliableTransport`` come with ROADMAP A12b).  The framing
 constants come from ``core.costmodel`` so the engine's accounting and
 the cost model's predictions cannot drift apart, and every byte charged
 equals the JAX engine's: ``transmitted_bytes`` is the total over the
@@ -13,7 +15,8 @@ the wire); ``decode_tokens`` counts committed tokens.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,8 +24,8 @@ from repro_torch.core.costmodel import (Channel, MSG_BYTES, QP_BYTES,
                                         TOK_BYTES)
 from repro_torch.serve.stats import ServeStats
 
-__all__ = ["ServeStats", "Transport", "LinkTelemetry", "_MSG_BYTES",
-           "_QP_BYTES", "_TOK_BYTES"]
+__all__ = ["ServeStats", "Transport", "LinkTelemetry", "DriftingChannel",
+           "_MSG_BYTES", "_QP_BYTES", "_TOK_BYTES"]
 
 # wire framing overhead for one quantized blob: f32 scale + f32 zero-point
 _QP_BYTES = int(QP_BYTES)
@@ -34,8 +37,7 @@ _MSG_BYTES = int(MSG_BYTES)
 
 class LinkTelemetry:
     """Online estimates of the link and the draft quality, from the
-    traffic the engine sends anyway (the loss estimate of the reference
-    comes with the reliability slice).
+    traffic the engine sends anyway.
 
     Every charged message is an ``(nbytes, seconds)`` sample of
     ``seconds = nbytes / bandwidth + rtt`` — a line in ``nbytes`` — so
@@ -49,7 +51,10 @@ class LinkTelemetry:
     memory.
 
     Draft/verify rounds contribute ``(graded, hits)`` samples giving an
-    EWMA draft acceptance rate for ``autotune.tune_spec_k``.
+    EWMA draft acceptance rate for ``autotune.tune_spec_k``, and every
+    delivery attempt a sender reports contributes a delivered/lost
+    sample giving an EWMA ``loss_rate`` — the expected-retransmit
+    multiplier ``costmodel`` prices lossy links with.
     """
 
     # no physical last hop beats ~1 TB/s: a degenerate sample pair can
@@ -66,6 +71,7 @@ class LinkTelemetry:
         self._bw: Optional[float] = None
         self._rtt: Optional[float] = None
         self._acc: Optional[float] = None
+        self._loss: Optional[float] = None
 
     # -- observations -------------------------------------------------------
     def observe_transfer(self, nbytes: float, seconds: float) -> None:
@@ -106,6 +112,12 @@ class LinkTelemetry:
             else self._acc + self.alpha * (r - self._acc)
         self.n_rounds += 1
 
+    def observe_delivery(self, delivered: bool) -> None:
+        """One send attempt's outcome: EWMA of the loss indicator."""
+        x = 0.0 if delivered else 1.0
+        self._loss = x if self._loss is None \
+            else self._loss + self.alpha * (x - self._loss)
+
     # -- estimates ----------------------------------------------------------
     @property
     def bandwidth_bytes_per_s(self) -> Optional[float]:
@@ -115,16 +127,67 @@ class LinkTelemetry:
     def rtt_s(self) -> Optional[float]:
         return self._rtt
 
+    @property
+    def loss_rate(self) -> float:
+        return 0.0 if self._loss is None else self._loss
+
     def acceptance(self, prior: float = 0.8) -> float:
         return prior if self._acc is None else self._acc
 
     def channel(self, fallback: Channel) -> Channel:
         """The estimated channel, or ``fallback`` until the regression
-        has locked on."""
+        has locked on.  Carries the measured ``loss_rate`` either way,
+        so the policy prices retransmissions even before the bandwidth
+        fit converges."""
         if self._bw is None:
-            return fallback
+            return fallback if self._loss is None else dataclasses.replace(
+                fallback, loss_rate=self.loss_rate)
         return Channel(bandwidth_bytes_per_s=self._bw,
-                       rtt_s=self._rtt or 0.0, name="telemetry")
+                       rtt_s=self._rtt or 0.0, loss_rate=self.loss_rate,
+                       name="telemetry")
+
+
+class DriftingChannel:
+    """A channel whose conditions follow a schedule over *simulated*
+    time (the cumulative transfer time it has charged, plus waits), e.g.
+    ::
+
+        DriftingChannel([(0.0, Channel.from_kbps(2000, rtt_ms=20)),
+                         (5.0, Channel.from_kbps(200, rtt_ms=150))])
+
+    Duck-types ``costmodel.Channel`` (``transfer_time``), so engines and
+    telemetry are oblivious; it drives the online re-tuning loop through
+    a bandwidth/RTT swing."""
+
+    def __init__(self, schedule: Sequence[Tuple[float, Channel]]):
+        if not schedule or schedule[0][0] != 0.0:
+            raise ValueError("schedule must start at simulated time 0")
+        self.schedule = list(schedule)
+        self.clock_s = 0.0
+
+    @property
+    def phase(self) -> Channel:
+        """The conditions at the current simulated time."""
+        cur = self.schedule[0][1]
+        for t0, ch in self.schedule:
+            if self.clock_s >= t0:
+                cur = ch
+        return cur
+
+    @property
+    def name(self) -> str:
+        return f"drift[{self.phase.name}]"
+
+    def transfer_time(self, nbytes: float) -> float:
+        t = self.phase.transfer_time(nbytes)
+        self.clock_s += t
+        return t
+
+    def wait(self, seconds: float) -> None:
+        """Sender-side time passing (scheduler stalls, arrival gaps) —
+        advances the schedule clock, as ``faults.FaultyChannel.wait``
+        does."""
+        self.clock_s += max(0.0, float(seconds))
 
 
 class Transport:

@@ -5,11 +5,14 @@ cloud tensor-parallel over two shards of the card) on CUDA against the
 same engine on the CPU, sampled serving on the card (threefry keys,
 uniforms and draws equal to the CPU's, sampled streams deterministic
 and equal to the CPU's, ``temperature=0`` equal to the greedy stream),
-and the collaborative image models: AlexNet's, a SMOKE ResNet's and a
+the collaborative image models: AlexNet's, a SMOKE ResNet's and a
 SMOKE ViT's engines on the card against the CPU (through
 ``chip_smoke._cnn_card_vs_cpu``, the check the script's ``cnn_path``
 runs), and the CNN and vision layers' f32 products in true f32 with the
-caller's TF32 flags left as they were.
+caller's TF32 flags left as they were; Eq.(1)'s scale on the card equal
+to the CPU's bit for bit; the online control loop (a scripted cut
+switch and warm k raise) and overload serving (a demand-paged engine
+preempting under pool pressure) on the card against the CPU.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine with the card alone:
@@ -1014,3 +1017,35 @@ def test_vision_engine_on_card_matches_cpu(cuda, arch, cut):
     res = _chip_smoke()._cnn_card_vs_cpu(model, cut, calib, x)
     if arch.startswith(("vit", "deit")):
         assert res["act_scale_names"] == 7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_eq1_scale_on_card_equals_cpu(cuda, bits):
+    """The same spans give the same Eq.(1) scale and zero point on the
+    card and on the CPU, per row and per tensor."""
+    rng = np.random.RandomState(bits)
+    x = torch.tensor((rng.randn(4096, 96)
+                      * rng.lognormal(0.0, 3.0, (4096, 1))).astype(np.float32))
+    for axis in (0, None):
+        c = compute_qparams(x, axis=axis, bits=bits)
+        g = compute_qparams(x.cuda(), axis=axis, bits=bits)
+        assert torch.equal(g.scale.cpu(), c.scale)
+        assert torch.equal(g.zero_point.cpu(), c.zero_point)
+        assert torch.equal(quantize(x.cuda(), g).cpu(), quantize(x, c))
+
+
+@pytest.mark.gpu
+def test_control_loop_and_preemption_on_card_match_cpu(cuda):
+    """``chip_smoke._control_parity`` (the check the script's
+    ``path_parity_control`` runs) on a 3-layer SMOKE model: a scripted
+    warm k raise, drained cut switch, k drop and warm raise, and a
+    demand-paged engine preempting under a pool squeeze, each equal to
+    its fixed-cut or worst-case twin on each device; here also every
+    stream and counter of the card equal to the CPU's."""
+    cfg = dataclasses.replace(CFG, n_layers=3, dtype=torch.float32)
+    res = _chip_smoke()._control_parity(cfg)
+    assert all(res["card_equals_cpu"].values())
+    for tag in ("fixed", "scripted", "worst_case", "demand"):
+        assert res["stats"][f"{tag}_cuda"] == res["stats"][f"{tag}_cpu"]
+    assert res["stats"]["demand_cuda"]["preemptions"] >= 1

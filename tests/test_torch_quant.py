@@ -70,3 +70,31 @@ def test_constant_tensor_keeps_span_floor():
     np.testing.assert_array_equal(tqp.scale.numpy(), np.asarray(jqp.scale))
     np.testing.assert_array_equal(tqp.zero_point.numpy(),
                                   np.asarray(jqp.zero_point))
+
+
+@pytest.mark.parametrize("bits,signed", [(8, True), (8, False), (4, True)])
+def test_scale_is_eager_jax_quotient_bit_for_bit(bits, signed):
+    """Eq.(1)'s scale and zero point from the same thresholds: the
+    port's ``_minmax_to_qparams`` divides the f32 span by a tensor
+    Range_LP (``_range_divisor``), which is eager JAX's quotient on
+    every span (jitted XLA multiplies by the reciprocal instead, and so
+    would torch on the card with a Python divisor)."""
+    rng = np.random.RandomState(bits + signed)
+    n = 200_000
+    lo = -np.abs(rng.randn(n) * rng.lognormal(0.0, 3.0, n)).astype(
+        np.float32)
+    hi = np.abs(rng.randn(n) * rng.lognormal(0.0, 3.0, n)).astype(np.float32)
+    jqp = JQ._minmax_to_qparams(jnp.asarray(lo), jnp.asarray(hi), bits=bits,
+                                signed=signed, axis=0)
+    tqp = TQ._minmax_to_qparams(torch.tensor(lo), torch.tensor(hi),
+                                bits=bits, signed=signed, axis=0)
+    np.testing.assert_array_equal(tqp.scale.numpy(), np.asarray(jqp.scale))
+    np.testing.assert_array_equal(tqp.zero_point.numpy(),
+                                  np.asarray(jqp.zero_point))
+    # the product with the reciprocal is another float on some spans:
+    # the check above can tell the two apart
+    span = np.maximum(hi - lo, np.float32(1e-12))
+    recip = span * np.float32(1.0 / (2 ** bits - 1))
+    assert (recip != tqp.scale.numpy()).any()
+    assert TQ._range_divisor(torch.device("cpu"), bits) is \
+        TQ._range_divisor(torch.device("cpu"), bits)

@@ -199,19 +199,24 @@ def test_cli_runs_collaborative_on_cpu(capsys):
 
 
 def test_unported_options_raise(params):
-    """Only the options still unported raise (``spec_k > 1``, ``mesh`` and
-    ``sampling=`` are ported; their parity tests are in
-    ``test_torch_spec.py``, ``test_torch_sharded.py`` and
-    ``test_torch_sampling.py``; a mesh with a data axis is not)."""
+    """Only the options still unported raise (``spec_k > 1``, ``mesh``,
+    ``sampling=``, ``policy``, ``demand_paged``, ``pressure`` and
+    ``admission`` are ported; their parity tests are in
+    ``test_torch_spec.py``, ``test_torch_sharded.py``,
+    ``test_torch_sampling.py``, ``test_torch_adaptive.py`` and
+    ``test_torch_overload.py``; a mesh with a data axis and the dense
+    cache layouts are not)."""
     _, tp = params
-    for kw, item in ((dict(policy="auto"), "A12"),
-                     (dict(demand_paged=True), "A12"),
-                     (dict(mesh=make_serve_mesh(model=2, data=2,
+    for kw, item in ((dict(mesh=make_serve_mesh(model=2, data=2,
                                                 device="cpu")), "A16"),
                      (dict(edge_paged=False), "A5")):
         with pytest.raises(NotImplementedError, match=item):
             TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0,
                                           device="cpu", **kw)
+    for kw in (dict(policy="auto"), dict(demand_paged=True),
+               dict(admission="deadline")):
+        TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0, device="cpu",
+                                      **kw)
     eng = TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0, spec_k=2,
                                         device="cpu")
     assert eng.spec_k == 2
