@@ -12,7 +12,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     counts of the split-K and wgmma INT8 kernels' SASS.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
-                    gives it (decode, prefill, speculative verify) and at
+                    gives it (decode, prefill, speculative verify, the
+                    resilient engine's resync replay) and at
                     a 4,096-position decode, its tensor-parallel form
                     ``paged_flash_mq_sharded`` at the same int8 shapes
                     split over 2 and 4 shards of the one card (per-shard
@@ -105,6 +106,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     plus stall waits, every page back; tokens/s and
                     B1's split and tensor-core launches beside a
                     worst-case engine on the same traffic.
+10b. ``resilient_path`` — ``ResilientCollaborativeEngine`` on the same
+                    weights and traffic at full width and depth over the
+                    main path's link with 5 % drops and two outage
+                    windows, at ``spec_k=1`` and ``spec_k=4``, beside
+                    the plain engine stalling through the windows:
+                    tokens/s, simulated channel s, edge-only tokens,
+                    resyncs, outage s, retries, timeouts, B1 launches by
+                    phase (the resync replay's tensor-core kernel at
+                    ``q_start > 0`` asserted); every budget served, two
+                    resyncs, the cloud up and every page back at the
+                    end, the k = 1 counts equal to a CPU rehearsal, and
+                    the tokens before the first outage equal to the
+                    fault-free streams.
 11. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
@@ -121,12 +135,18 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     fixed-cut stream, a demand-paged engine preempting
                     under a pool squeeze against the worst-case engine,
                     and each card stream against the CPU's (equal, or a
-                    near-tie at the first divergence).
+                    near-tie at the first divergence); then
+                    ``path_parity_resilient``: the resilient engine
+                    through drops and two outages, lossless at k = 1 and
+                    4 and sampled at k = 1, equal to the fault-free
+                    streams on each device, its k = 1 counters and
+                    ``round_log`` equal card vs CPU.
 12. ``cnn_path`` — collaborative split inference of the image models
                     (``core.collab``): the paper's AlexNet, VGG16 and
                     GoogLeNet, and ResNet-18, ResNet-152, ViT-S/16,
                     DeiT-B and ViT-H/14, at full width and depth (but
-                    ViT-H/14 at 8 of its 32 blocks, ``CNN_DEPTH``) and
+                    ViT-H/14 at 8 of its 32 blocks and ResNet-152 at
+                    26 of its 50, ``CNN_DEPTH``) and
                     their published resolutions, f32 (the one departure
                     from the published configs, which say bf16 for all
                     of them but ResNet-18: the reference's engine fails
@@ -147,8 +167,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     read: 0).
 
 Then a ``{"kernels": [...]}`` summary line (each row with its
-``cnn_path_launches``, ``adaptive_path_launches`` and
-``overload_path_launches``), the ``nvidia-smi`` name and
+``cnn_path_launches``, ``adaptive_path_launches``,
+``overload_path_launches`` and ``resilient_path_launches``), the
+``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
 device is present or the repository's ``src/`` is missing.
@@ -488,6 +509,16 @@ def phase_kernels() -> list:
         "deepseek7b_verify_int8", b=4, s=4, n_heads=32, n_kv=32, hd=128,
         page=16, lengths=lengths_ver, q_start=[n - 4 for n in lengths_ver],
         page_dtype=torch.int8, scales=True, seed=5, copies=24))
+    # the resilient engine's resync replay: R = 24 buffered rows per slot
+    # from each slot's own resume position (tensor-core kernel at
+    # q_start > 0), one slot riding along at position 0 on a zeroed
+    # block-table row (it reads and writes the dump page)
+    replay = _paged_case(
+        "deepseek7b_replay_int8", b=4, s=24, n_heads=32, n_kv=32, hd=128,
+        page=16, lengths=[124, 148, 164, 24], q_start=[100, 124, 140, 0],
+        page_dtype=torch.int8, scales=True, seed=7, copies=8)
+    replay["bt"][3] = 0
+    cases.append(replay)
     cases.append(_paged_case(
         "phi3_medium_gqa_decode_int8", b=4, s=1, n_heads=40, n_kv=10,
         hd=128, page=16, lengths=lengths_dec,
@@ -1214,12 +1245,14 @@ def profile_window(fn, unprofiled_wall_s: float, top: int = 8) -> dict:
     The device events are summed straight from the profiler's raw
     results: ``key_averages()`` first builds the whole CPU operator
     tree in Python, and with it a window took 90–265 s on the H100
-    machine's host at these event counts — most of the script's time."""
+    machine's host at these event counts — most of the script's time.
+    Only the device's activity is recorded: the sums read nothing else,
+    and parsing the CPU operators' events when the window closes took
+    several times the profiled traffic's own wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2517,6 +2550,320 @@ def phase_overload_path(params, cfg, *, device="cuda", cut=14) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10b: the resilient engine at full width
+# ---------------------------------------------------------------------------
+
+
+# the resilient run's faults on the simulated clock: a 5 % drop rate and
+# two outage windows (start, end) in seconds — the first opens in the
+# first wave's decode and closes after each live slot has buffered 17-31
+# boundary rows (so the replay runs at S > 16: the tensor-core kernel at
+# q_start > 0), the second covers the second wave's admission (the
+# calibrating resync).  Picked, and the counts below taken, from a CPU
+# rehearsal of the same traffic at d_model 4096 (``rehearse_resilient``)
+RESILIENT_DROP_P = 0.05
+RESILIENT_OUTAGES = ((19.0, 20.1), (21.7, 22.7))
+# the reliable transport's deadline until its telemetry locks on: the
+# first prefill's 2.1 MB take 8.4 s at 250 KB/s, which the default 0.5 s
+# would count as lost on every attempt
+RESILIENT_FALLBACK_DEADLINE_S = 10.0
+# the rehearsal's counts at spec_k = 1, which depend only on wire bytes
+RESILIENT_REHEARSAL = dict(
+    prefill_calls=2, decode_steps=62, decode_tokens=248,
+    edge_only_tokens=160, resyncs=2, retries=10, timeouts=31,
+    corrupt_msgs=0, outage_s=12.135839999999988,
+    channel_latency_s=34.19603098911199, transmitted_bytes=5203232,
+    decode_bytes=3104224, clock_s=34.19603098911199,
+    faults={"drop": 4, "corrupt": 0, "stall": 0, "outage": 27},
+    phase_calls={"_edge_prefill": 2, "_cloud_prefill": 1,
+                 "_draft_prefill_impl": 2, "_edge_decode": 0,
+                 "_edge_only_logits": 62, "_cloud_decode": 23,
+                 "_spec_draft_impl": 0, "_verify_impl": 0,
+                 "_resync_replay_impl": 1, "_resync_prefill_impl": 1},
+    replay_lens={"_resync_replay_impl": [23],
+                 "_resync_prefill_impl": [143]},
+    edge_only_calls=62, resync_calls=2, seq=50, rounds_down=41,
+    committed_before_outage=[(0, 6), (1, 6), (2, 6), (3, 6), (4, 0),
+                             (5, 0), (6, 0), (7, 0)])
+# the B1 launches each phase makes per call, by design (S * group > 16
+# takes the tensor-core kernel): phase -> (layers, kernel)
+RESILIENT_PHASES = ("_edge_prefill", "_cloud_prefill", "_draft_prefill_impl",
+                    "_edge_decode", "_edge_only_logits", "_cloud_decode",
+                    "_spec_draft_impl", "_verify_impl",
+                    "_resync_replay_impl", "_resync_prefill_impl")
+
+
+class _PhaseLaunches:
+    """While active, count each call of ``eng``'s phases ``names`` and
+    the B1 launches (split and tensor-core) made inside it, with the
+    replay length R of each resync phase call."""
+
+    def __init__(self, eng, names):
+        self.eng, self.names = eng, names
+        self.calls = {n: 0 for n in names}
+        self.split = {n: 0 for n in names}
+        self.tc = {n: 0 for n in names}
+        self.replay_lens = {n: [] for n in names if n.startswith("_resync")}
+
+    def __enter__(self):
+        from repro_torch.kernels import paged_attention as PA
+        fn = PA.paged_flash_mq
+        for n in self.names:
+            def wrap(*a, _orig=getattr(self.eng, n), _n=n, **kw):
+                l0, t0 = fn.launches, fn.tc_launches
+                out = _orig(*a, **kw)
+                self.calls[_n] += 1
+                self.tc[_n] += fn.tc_launches - t0
+                self.split[_n] += fn.launches - l0 - (fn.tc_launches - t0)
+                if _n.startswith("_resync"):
+                    self.replay_lens[_n].append(int(a[1].shape[1]))
+                return out
+            setattr(self.eng, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            delattr(self.eng, n)
+
+
+def _resilient_run(params, cfg, *, device, cut, spec_k, kind) -> dict:
+    """The resilient path's traffic — 8 requests x 32 new tokens after
+    128-token prompts, 4 slots, INT8 paged KV, page 16 — on a fresh
+    engine over ``FaultyChannel(250 KB/s, 20 ms, seed 0)`` with
+    ``RESILIENT_DROP_P`` and ``RESILIENT_OUTAGES``.  ``kind``:
+    ``"resilient"`` (``ResilientCollaborativeEngine``) or ``"naive"``
+    (the plain engine, whose blocking channel stalls through the
+    windows).  Returns the streams, counters, phase calls and launches,
+    and each request's tokens committed before the first outage."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve import (CollaborativeServingEngine, FaultyChannel,
+                                   ReliableTransport, Request,
+                                   ResilientCollaborativeEngine)
+
+    n_req, plen, max_new, page = 8, 128, 32, 16
+    fch = FaultyChannel(Channel.from_kbps(250.0, rtt_ms=20.0), seed=0,
+                        drop_p=RESILIENT_DROP_P,
+                        outages=[list(w) for w in RESILIENT_OUTAGES])
+    kw = dict(cut_layer=cut, channel=fch, spec_k=spec_k, page_size=page,
+              max_len=plen + max_new + 24, device=device)
+    if kind == "resilient":
+        eng = ResilientCollaborativeEngine(
+            params, cfg, transport=ReliableTransport(
+                fch, fallback_deadline_s=RESILIENT_FALLBACK_DEADLINE_S),
+            **kw)
+    else:
+        eng = CollaborativeServingEngine(params, cfg, **kw)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(_prompts(n_req, plen, cfg.vocab, seed=0))]
+    before = {}
+    if kind == "resilient":
+        def enter(pos, _orig=eng._enter_outage):
+            if not before:
+                before.update({r.uid: (r.max_new_tokens if r.done else 0)
+                               for r in reqs})
+                before.update({r.uid: c for r, c in
+                               eng._sched_active.values()})
+            _orig(pos)
+        eng._enter_outage = enter
+    names = [n for n in RESILIENT_PHASES if hasattr(eng, n)]
+    with _PhaseLaunches(eng, names) as ph:
+        r = _counted(eng, lambda: eng.generate_requests(reqs))
+    st = r["stats"]
+    a = eng._pool.allocator
+    out = dict(
+        kind=kind, spec_k=spec_k, outs=[q.out_tokens for q in reqs],
+        wall_s=r["wall"], tokens=sum(len(q.out_tokens) for q in reqs),
+        full_budgets=all(len(q.out_tokens) == max_new for q in reqs),
+        stats=st, clock_s=fch.clock_s, faults=dict(fch.faults),
+        launches=r["launches"], tc_launches=r["tc_launches"],
+        by_row=r["by_row"], phase_calls=dict(ph.calls),
+        phase_split=dict(ph.split), phase_tc=dict(ph.tc),
+        replay_lens=dict(ph.replay_lens),
+        pages_back=a.num_free == a.num_pages - 1 and not a.live,
+        n_layers=cfg.n_layers, n_edge=eng.n_edge, n_cloud=eng.n_cloud,
+        committed_before_outage=before)
+    if kind == "resilient":
+        del eng._enter_outage
+        out.update(cloud_down=eng.cloud_down, round_log=list(eng.round_log),
+                   edge_only_calls=eng.phase_calls["edge_only"],
+                   resync_calls=eng.phase_calls["resync"],
+                   seq=eng.transport.seq,
+                   loss_rate=eng.transport.telemetry.loss_rate)
+    del eng
+    _free(device)
+    return out
+
+
+def _resilient_counts(run: dict) -> dict:
+    """A run's schedule: what depends only on wire bytes at spec_k = 1
+    (the CPU rehearsal's numbers)."""
+    st = run["stats"]
+    return dict(prefill_calls=st.prefill_calls, decode_steps=st.decode_steps,
+                decode_tokens=st.decode_tokens,
+                edge_only_tokens=st.edge_only_tokens, resyncs=st.resyncs,
+                retries=st.retries, timeouts=st.timeouts,
+                corrupt_msgs=st.corrupt_msgs, outage_s=st.outage_s,
+                channel_latency_s=st.channel_latency_s,
+                transmitted_bytes=st.transmitted_bytes,
+                decode_bytes=st.decode_bytes, clock_s=run["clock_s"],
+                faults=run["faults"], phase_calls=run["phase_calls"],
+                replay_lens=run["replay_lens"],
+                edge_only_calls=run.get("edge_only_calls"),
+                resync_calls=run.get("resync_calls"), seq=run.get("seq"),
+                rounds_down=sum(e["cloud_down"]
+                                for e in run.get("round_log", [])),
+                committed_before_outage=sorted(
+                    run["committed_before_outage"].items()))
+
+
+def _expected_phase_launches(run: dict) -> dict:
+    """The B1 launches each phase's calls imply: (split, tensor-core)."""
+    n_layers, n_edge, n_cloud = run["n_layers"], run["n_edge"], \
+        run["n_cloud"]
+    k, calls = run["spec_k"], run["phase_calls"]
+    per = {"_edge_prefill": (0, n_edge), "_cloud_prefill": (0, n_cloud),
+           "_draft_prefill_impl": (0, n_cloud), "_edge_decode": (n_edge, 0),
+           "_edge_only_logits": (n_layers, 0), "_cloud_decode": (n_cloud, 0),
+           "_spec_draft_impl": (k * n_layers, 0),
+           "_verify_impl": (n_cloud, 0), "_resync_prefill_impl": (0, n_cloud)}
+    want = {n: (calls[n] * per[n][0], calls[n] * per[n][1])
+            for n in calls if n in per}
+    if "_resync_replay_impl" in calls:
+        lens = run["replay_lens"]["_resync_replay_impl"]
+        want["_resync_replay_impl"] = (
+            n_cloud * sum(r <= 16 for r in lens),
+            n_cloud * sum(r > 16 for r in lens))
+    return want
+
+
+def phase_resilient_path(params, cfg, *, fault_free=None, device="cuda",
+                         cut=14) -> dict:
+    """The resilient engine on the main path's weights and traffic at
+    full width and depth: ``ResilientCollaborativeEngine`` at
+    ``spec_k=1`` and ``spec_k=4`` and the plain engine (the naive
+    baseline, k = 1) on the same fault schedule (``_resilient_run``),
+    each on a fresh engine freed before the next; ``fault_free`` maps k
+    to the fault-free streams of the same requests (the main and spec
+    paths'), else they are run here.
+
+    Asserted: every request its whole budget; at least two resyncs and
+    the cloud up at the end; every page back; each phase's B1 launches
+    those its calls imply (``_expected_phase_launches``; every launch of
+    the run inside one of them), with at least one tensor-core launch
+    from a resync replay; at spec_k = 1 every count equal to the CPU
+    rehearsal's (``RESILIENT_REHEARSAL``); the tokens each request
+    committed before the first outage equal to the fault-free engine's;
+    the naive engine's streams equal to the fault-free serial ones.
+    Reported: tokens/s, simulated channel s, edge-only tokens, resyncs,
+    outage s, retries, timeouts, B1 split and tensor-core launches with
+    the resync phases' apart."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve import CollaborativeServingEngine
+
+    fault_free = dict(fault_free or {})
+    for k in (1, 4):
+        if k not in fault_free:
+            eng = CollaborativeServingEngine(
+                params, cfg, cut_layer=cut, spec_k=k,
+                channel=Channel.from_kbps(250.0, rtt_ms=20.0),
+                max_len=128 + 32 + 24, device=device)
+            fault_free[k] = eng.generate(
+                _prompts(8, 128, cfg.vocab, seed=0), max_new_tokens=32)
+            del eng
+            _free(device)
+    runs = {}
+    for tag, k, kind in (("k1", 1, "resilient"), ("k4", 4, "resilient"),
+                         ("naive", 1, "naive")):
+        runs[tag] = _resilient_run(params, cfg, device=device, cut=cut,
+                                   spec_k=k, kind=kind)
+    checks, res = {}, dict(arch=cfg.name, layers=cfg.n_layers, cut=cut,
+                           requests=8, slots=4, prompt_len=128, max_new=32,
+                           page=16, drop_p=RESILIENT_DROP_P,
+                           outages=[list(w) for w in RESILIENT_OUTAGES],
+                           reduced=None)
+    for tag, run in runs.items():
+        st = run["stats"]
+        want = _expected_phase_launches(run)
+        got = {n: (run["phase_split"][n], run["phase_tc"][n]) for n in want}
+        attributed = sum(s + t for s, t in got.values())
+        checks[tag] = dict(
+            full_budgets=run["full_budgets"], pages_back=run["pages_back"],
+            phase_launches_as_designed=got == want,
+            every_launch_in_a_phase=attributed == run["launches"])
+        replay_tc = run["phase_tc"].get("_resync_replay_impl", 0)
+        if run["kind"] == "resilient":
+            k = run["spec_k"]
+            ff = fault_free[k]
+            n0 = run["committed_before_outage"]
+            checks[tag].update(
+                resyncs=st.resyncs >= (2 if k == 1 else 1),
+                cloud_up=not run["cloud_down"],
+                committed_before_outage=sum(n0.values()) > 0,
+                before_outage_equal_fault_free=all(
+                    run["outs"][u][:n] == ff[u][:n] for u, n in n0.items()))
+            if k == 1:
+                # the schedule the rehearsal fixed: both resync flavours,
+                # the replay at R = 23 on the tensor-core kernel
+                checks[tag].update(
+                    replay_tc_launch=replay_tc > 0,
+                    counts_equal_rehearsal=(_resilient_counts(run)
+                                            == RESILIENT_REHEARSAL))
+        else:
+            checks[tag]["streams_equal_fault_free"] = \
+                run["outs"] == fault_free[1]
+        res[tag] = dict(
+            spec_k=run["spec_k"], kind=run["kind"], wall_s=run["wall_s"],
+            tokens=run["tokens"], tokens_per_s=run["tokens"] / run["wall_s"],
+            simulated_channel_s=st.channel_latency_s,
+            simulated_clock_s=run["clock_s"],
+            edge_only_tokens=st.edge_only_tokens, resyncs=st.resyncs,
+            outage_s=st.outage_s, retries=st.retries, timeouts=st.timeouts,
+            prefill_calls=st.prefill_calls, decode_steps=st.decode_steps,
+            spec_rounds=st.spec_rounds, draft_hits=st.draft_hits,
+            transmitted_bytes=st.transmitted_bytes, faults=run["faults"],
+            split_launches=run["launches"] - run["tc_launches"],
+            tc_launches=run["tc_launches"],
+            resync_split_launches=sum(
+                run["phase_split"].get(n, 0) for n in
+                ("_resync_replay_impl", "_resync_prefill_impl")),
+            resync_tc_launches=sum(
+                run["phase_tc"].get(n, 0) for n in
+                ("_resync_replay_impl", "_resync_prefill_impl")),
+            replay_tc_launches=replay_tc,
+            phase_calls=run["phase_calls"], replay_lens=run["replay_lens"],
+            committed_before_outage=run["committed_before_outage"],
+            counts=_resilient_counts(run), checks=checks[tag])
+    res["launches"] = _sum_rows(runs["k1"]["by_row"], runs["k4"]["by_row"])
+    emit("resilient_path", **res)
+    bad = {t: {c: v for c, v in ch.items() if v is not True}
+           for t, ch in checks.items()}
+    if any(bad.values()):
+        raise AssertionError(f"resilient path: failed checks {bad}")
+    return res
+
+
+def rehearse_resilient() -> dict:
+    """The resilient path's spec_k = 1 schedule on this host's CPU: the
+    same traffic and faults on a 2-layer model of deepseek-7b's width
+    (d_model 4096, so the same wire bytes; a small vocabulary and FFN,
+    which the schedule does not see), cut 0.  Prints and returns
+    ``_resilient_counts``: ``RESILIENT_REHEARSAL``.  Run with
+    ``python3 -c "import chip_smoke as c; c.rehearse_resilient()"``."""
+    import dataclasses
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+    cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=2,
+                              vocab=512, d_ff=256, dtype=torch.float32)
+    params = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    run = _resilient_run(params, cfg, device="cpu", cut=0, spec_k=1,
+                         kind="resilient")
+    counts = _resilient_counts(run)
+    print(repr(counts), flush=True)
+    return counts
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -2745,6 +3092,7 @@ def phase_path_parity() -> None:
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     _control_parity()
+    _resilient_parity()
 
 
 def _control_parity(cfg=None) -> dict:
@@ -2855,6 +3203,166 @@ def _control_parity(cfg=None) -> dict:
     return res
 
 
+# the 3-layer resilient parity's faults: drops and two outage windows on
+# the simulated clock (lossless f32 rows: 16 KB a row at d_model 4096)
+PARITY_DROP_P = 0.05
+PARITY_OUTAGES = ((6.0, 7.5), (14.0, 15.5))
+# the same for the ``gpu`` test's 3-layer SMOKE model (d_model 64), whose
+# first 10 s pass in a fallback deadline (an early drop)
+PARITY_OUTAGES_SMOKE = ((10.6, 11.2), (11.6, 12.2))
+PARITY_MAX_NEW = 16
+
+
+# ``_resilient_parity``'s runs: tag -> (spec_k, sampled, faulted)
+PARITY_RUNS = {"fault_free": (1, False, False),
+               "fault_free_sampled": (1, True, False),
+               "k1": (1, False, True), "k4": (4, False, True),
+               "k1_sampled": (1, True, True)}
+
+
+def _resilient_parity_runs(p, cfg, dev, prompts, outages, tags) -> tuple:
+    """``_resilient_parity``'s runs ``tags`` on one device: the
+    fault-free plain engine (greedy and sampled) and the resilient
+    engine through drops and ``outages`` (k = 1 and 4 greedy, k = 1
+    sampled), each on a fresh engine.  Returns ``(streams, counters)``
+    by run."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve import (CollaborativeServingEngine, FaultyChannel,
+                                   ReliableTransport,
+                                   ResilientCollaborativeEngine,
+                                   SamplingParams)
+    samp = [SamplingParams(temperature=SAMPLE_T, top_p=SAMPLE_P,
+                           seed=30 + i) for i in range(len(prompts))]
+    base = dict(a_bits=None, edge_int8=False, cloud_int8=False,
+                max_len=64, max_batch=2, cut_layer=0)
+    link = Channel.from_kbps(250.0, rtt_ms=20.0)
+    runs, stats = {}, {}
+    for tag in tags:
+        k, sampled, faulted = PARITY_RUNS[tag]
+        if faulted:
+            fch = FaultyChannel(link, seed=0, drop_p=PARITY_DROP_P,
+                                outages=[list(w) for w in outages])
+            eng = ResilientCollaborativeEngine(
+                p, cfg, device=dev, spec_k=k, channel=fch,
+                transport=ReliableTransport(
+                    fch, fallback_deadline_s=RESILIENT_FALLBACK_DEADLINE_S),
+                **base)
+        else:
+            eng = CollaborativeServingEngine(p, cfg, device=dev, spec_k=k,
+                                             channel=link, **base)
+        runs[tag] = eng.generate(prompts, max_new_tokens=PARITY_MAX_NEW,
+                                 sampling=samp if sampled else None)
+        st = eng.stats
+        a = eng._pool.allocator
+        stats[tag] = dict(
+            edge_only_tokens=st.edge_only_tokens, resyncs=st.resyncs,
+            outage_s=st.outage_s, retries=st.retries, timeouts=st.timeouts,
+            spec_rounds=st.spec_rounds, draft_hits=st.draft_hits,
+            decode_steps=st.decode_steps,
+            transmitted_bytes=st.transmitted_bytes,
+            channel_latency_s=st.channel_latency_s,
+            phase_calls=dict(eng.phase_calls),
+            round_log=list(getattr(eng, "round_log", [])),
+            cloud_down=bool(getattr(eng, "cloud_down", False)),
+            pages_back=a.num_free == a.num_pages - 1 and not a.live)
+        del eng
+    return runs, stats
+
+
+def _resilient_parity(cfg=None, outages=None) -> dict:
+    """The resilient engine, lossless (``a_bits=None``, fp pages), f32,
+    2 slots, on the card and on the CPU (the CPU port is held to the JAX
+    engines by ``tests/test_torch_chaos.py`` and
+    ``test_torch_resilience.py``); ``cfg`` defaults to deepseek-7b at
+    full width and 3 layers, ``outages`` to ``PARITY_OUTAGES`` (the
+    ``gpu`` tests pass a smaller model and its windows).  On each
+    device, over ``FaultyChannel(250 KB/s, 20 ms, seed 0)`` with
+    ``PARITY_DROP_P`` (``_resilient_parity_runs``):
+
+    * the resilient stream at spec_k = 1 and 4 equal to the fault-free
+      serial stream (the plain engine on a plain channel), with at
+      least one resync and edge-only tokens in each;
+    * on the card, a sampled stream (temperature 0.8, top-p 0.9) at
+      spec_k = 1 through the outages equal to the fault-free sampled
+      stream (the sampled path's parity holds sampled streams card =
+      CPU; the CPU runs only the greedy cases, for time);
+    * the card's streams against the CPU's: equal, or a near-tie at the
+      first divergence (``_near_ties``); at spec_k = 1 the counters,
+      phase calls and ``round_log`` equal the CPU's (the schedule
+      depends only on wire bytes), and at spec_k = 4 wherever the
+      streams are equal.
+
+    Returns the streams' equalities and each run's counters."""
+    import dataclasses
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=3,
+                                  dtype=torch.float32)
+    outages = PARITY_OUTAGES if outages is None else outages
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p_gpu = init_lm(cfg, torch.Generator(device="cuda").manual_seed(3),
+                        device="cuda")
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        prompts = _parity_prompts(cfg)
+        runs, stats = {}, {}
+        for dev, p, tags in (("cuda", p_gpu, tuple(PARITY_RUNS)),
+                             ("cpu", p_cpu, ("fault_free", "k1", "k4"))):
+            r, s_ = _resilient_parity_runs(p, cfg, dev, prompts, outages,
+                                           tags)
+            runs.update({(t, dev): v for t, v in r.items()})
+            stats.update({(t, dev): v for t, v in s_.items()})
+        for tag, twin, dev in (
+                ("k1", "fault_free", "cuda"), ("k1", "fault_free", "cpu"),
+                ("k4", "fault_free", "cuda"), ("k4", "fault_free", "cpu"),
+                ("k1_sampled", "fault_free_sampled", "cuda")):
+            s_ = stats[tag, dev]
+            if not (s_["resyncs"] >= 1 and s_["edge_only_tokens"] > 0
+                    and not s_["cloud_down"] and s_["pages_back"]):
+                raise AssertionError(f"resilient parity on {dev}: {tag} "
+                                     f"{s_}")
+            # one device's arithmetic: the faults, the edge-only tokens
+            # and the replay must not move a lossless stream
+            if runs[tag, dev] != runs[twin, dev]:
+                raise AssertionError(f"resilient parity on {dev}: the "
+                                     f"{tag} stream differs from the "
+                                     f"{twin} one")
+        checked = {f"{tag}_card_vs_cpu": _near_ties(
+            runs[tag, "cuda"], runs[tag, "cpu"], prompts, p_gpu, p_cpu, cfg)
+            for tag in ("fault_free", "k1", "k4")}
+        for tag in ("k1", "k4"):
+            if (tag == "k1" or runs[tag, "cuda"] == runs[tag, "cpu"]) and \
+                    stats[tag, "cuda"] != stats[tag, "cpu"]:
+                raise AssertionError(f"resilient parity: {tag} counters on "
+                                     f"the card differ from the CPU's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    res = dict(card_equals_cpu={t: runs[t, "cuda"] == runs[t, "cpu"]
+                                for t, d in runs if d == "cpu"},
+               counters_card_equal_cpu={
+                   t: stats[t, "cuda"] == stats[t, "cpu"]
+                   for t, d in stats if d == "cpu"},
+               sampled_equals_fault_free=True,
+               stats={f"{t}_{d}": {k: v for k, v in s.items()
+                                   if k != "round_log"}
+                      for (t, d), s in stats.items()})
+    emit("path_parity_resilient", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype="float32", requests=len(prompts),
+         max_new=PARITY_MAX_NEW, drop_p=PARITY_DROP_P,
+         outages=[list(w) for w in outages], tol=PARITY_TOL,
+         resilient_equals_fault_free=True, near_ties=checked, **res)
+    return res
+
+
+def _parity_prompts(cfg) -> list:
+    return [np.random.RandomState(60 + i).randint(0, cfg.vocab, n)
+            .astype(np.int32) for i, n in enumerate((20, 17, 33, 9, 16))]
+
+
 # the cnn_path's card-against-CPU check (cuDNN and oneDNN sum a conv in
 # other orders): fp32 outputs within CNN_F32_TOL of max |CPU| (TF32 would
 # be ~1e-3 off); the boundary lattice of the same float tensor under the
@@ -2880,8 +3388,11 @@ CNN_NETS = (("alexnet", "conv5"), ("vgg16", None), ("googlenet", "conv2"),
             ("vit-s16", "blk0/ffn"), ("deit-b", None), ("vit-h14", None))
 LEGACY_CNNS = ("alexnet", "vgg16", "googlenet")
 # nets run at fewer blocks than published, to keep the script inside
-# its time (every cut still timed): ViT-H/14 at 8 of its 32 blocks
-CNN_DEPTH = {"vit-h14": {"n_layers": 8}}
+# its time (every cut still timed): ViT-H/14 at 8 of its 32 blocks, and
+# ResNet-152's third stage at 12 of its 36 identical bottleneck blocks
+# (26 of 50 blocks; every stage and block shape kept)
+CNN_DEPTH = {"vit-h14": {"n_layers": 8},
+             "resnet-152": {"depths": (3, 8, 12, 3)}}
 CNN_REPEATS = 5
 
 
@@ -3154,9 +3665,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "cnn_path", "control"),
                     help="run only the kernel phases (a quick check of a "
                          "kernel change), only the CNN path, or only the "
-                         "build, the control loop and overload phases and "
-                         "their 3-layer card-vs-CPU cases; prints no "
-                         "result line")
+                         "build, the control loop, overload and resilient "
+                         "phases and their 3-layer card-vs-CPU cases; "
+                         "prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3180,9 +3691,11 @@ def main(argv=None) -> int:
                          device="cuda")
         phase_adaptive_path(params, cfg, {"outs": []})
         phase_overload_path(params, cfg)
+        phase_resilient_path(params, cfg)
         del params
         torch.cuda.empty_cache()
         _control_parity()
+        _resilient_parity()
         return 0
     kres = phase_kernels()
     sres = phase_sharded_kernels()
@@ -3208,6 +3721,8 @@ def main(argv=None) -> int:
     tp_res = phase_tp_path(params, cfg, main_res, spec_res)
     adapt_res = phase_adaptive_path(params, cfg, main_res)
     over_res = phase_overload_path(params, cfg)
+    res_res = phase_resilient_path(
+        params, cfg, fault_free={1: main_res["outs"], 4: spec_res["outs"]})
     del params
     torch.cuda.empty_cache()
     phase_path_parity()
@@ -3329,6 +3844,7 @@ def main(argv=None) -> int:
         r["cnn_path_launches"] = cnn_launches[r["name"]]
         r["adaptive_path_launches"] = adapt_res["launches"][r["name"]]
         r["overload_path_launches"] = over_res["launches"][r["name"]]
+        r["resilient_path_launches"] = res_res["launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

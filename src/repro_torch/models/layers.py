@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -613,6 +614,26 @@ def _paged_cache_attention(caches: List[Dict[str, torch.Tensor]], qhs, khs,
     return [o.to(dtype) for o in outs], new_caches
 
 
+@functools.lru_cache(maxsize=None)
+def _inv127(device: torch.device) -> torch.Tensor:
+    """f32 ``1/127`` as a 0-dim tensor on ``device``, made once a device."""
+    return torch.tensor(1.0 / 127.0, dtype=torch.float32, device=device)
+
+
+def _kv_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The INT8 KV pages' symmetric scale of a calibrated ``amax``.  The
+    reference engines compute ``max(amax, 1e-6) / 127.0`` under
+    ``jit``, where XLA takes an f32 quotient as the product with the f32
+    reciprocal; so does this, on the card and on the CPU alike (torch's
+    CPU divides, and would put an f32 scale one ulp off on a few rows).
+    A bf16 ``amax`` keeps the division, which both devices' kernels
+    already take as XLA does."""
+    amax = torch.clamp(amax, min=1e-6)
+    if amax.dtype == torch.float32:
+        return amax * _inv127(amax.device)
+    return amax / 127.0
+
+
 def _write_pages(cache: Dict[str, torch.Tensor], kh, vh, block_tables,
                  cache_index, vec_index: bool, calibrate_kv: bool,
                  kv_lengths: Optional[torch.Tensor]):
@@ -634,8 +655,8 @@ def _write_pages(cache: Dict[str, torch.Tensor], kh, vh, block_tables,
                          < kv_lengths[:, None])[:, :, None, None]
                 ak = torch.where(valid, ak, torch.zeros_like(ak))
                 av = torch.where(valid, av, torch.zeros_like(av))
-            ks = torch.clamp(torch.amax(ak, dim=(1, 3)), min=1e-6) / 127.0
-            vs = torch.clamp(torch.amax(av, dim=(1, 3)), min=1e-6) / 127.0
+            ks = _kv_scale(torch.amax(ak, dim=(1, 3)))
+            vs = _kv_scale(torch.amax(av, dim=(1, 3)))
         else:
             ks, vs = cache["k_scale"], cache["v_scale"]
         k_w = torch.clamp(torch.round(kh / ks[:, None, :, None]),

@@ -4,11 +4,14 @@ tuning policy, and the overload and fault-injection layers.
 
     scheduler   slot/bucket/round continuous batching (``_SlotEngine``)
     kvcache     paged KV bookkeeping (``PageAllocator``, demand growth)
-    transport   framing, wire accounting, link telemetry, drifting links
+    transport   framing, wire accounting, link telemetry, drifting links,
+                the reliable transport (deadlines, retries, escalation)
     faults      seeded/scripted channel faults and pool pressure
     policy      online (cut_layer, spec_k) re-tuning + deadline admission
     overload    demand paging / preemption / shedding hooks
     engine      ``ServingEngine`` / ``CollaborativeServingEngine``
+    resilience  ``ResilientCollaborativeEngine``: edge-only serving
+                through cloud outages and the cloud KV resync
 
 ``from repro_torch.serve import X`` resolves the public names of the
 reference's ``repro.serve`` that the port has, on first use: the
@@ -19,6 +22,8 @@ import importlib
 
 _EXPORTS = {
     "ServingEngine": "cloud", "CollaborativeServingEngine": "engine",
+    "ResilientCollaborativeEngine": "resilience",
+    "ReliableTransport": "transport", "CloudUnreachable": "transport",
     "PageAllocator": "kvcache", "PoolExhausted": "kvcache",
     "ServeStats": "stats", "Request": "scheduler",
     "SamplingParams": "sampling", "Transport": "transport",

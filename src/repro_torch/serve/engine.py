@@ -87,6 +87,11 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
     ``timed`` waits for the device after each prefill and round and adds
     their wall times to ``stats.prefill_s`` / ``stats.decode_s``."""
 
+    # a subclass that serves on the edge's INT8 suffix copy through cloud
+    # outages (``serve.resilience``) keeps the copy and its draft cache
+    # even at spec_k = 1, with one round of page headroom for it
+    _standby = False
+
     def __init__(self, params: Params, cfg: TF.LMConfig, *, cut_layer: int,
                  channel: Optional[Channel] = None, max_len: int = 128,
                  a_bits: Optional[int] = 8, max_batch: int = 4,
@@ -164,6 +169,8 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         # headroom are provisioned for it once, up front
         self._spec_max = self.spec_k if self.policy is None \
             else max(self.spec_k, *self.policy.ks)
+        if self._standby:
+            self._spec_max = max(self._spec_max, 2)
 
         params = tree_map(lambda t: t.to(dev), params)
         self.embed = params["embed"]
@@ -201,6 +208,8 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         self._samp_p = np.ones((max_batch,), np.float32)
         self._samp_s = np.zeros((max_batch,), np.int64)
         self._samp_dev: Optional[Tuple[torch.Tensor, ...]] = None
+        # calls of the degradation and resync phases (serve.spec)
+        self.phase_calls = {"edge_only": 0, "resync": 0}
 
     # -- wire plumbing -------------------------------------------------------
     @property
@@ -383,45 +392,63 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
                 return super()._round(cur, pos, slots)
             cur, pos = self._decode_all_sample(cur, pos, len(slots))
             return cur, pos, cur[:, None], None
+        return self._spec_round(cur, pos, slots)
+
+    def _draft_round(self, cur, pos, bt, slots):
+        """The edge half of a speculative round: ``(drafted, nbytes,
+        verify)`` — the ``(blobs, scales, zps, drafts)`` of the k drafted
+        steps, the bytes of the one uplink message that carries them,
+        and the cloud half, ``verify(pos) -> (toks, n_commit, cur,
+        pos)``."""
         k, n_active = self.spec_k, len(slots)
-        bt = self._pool.table_dev()
+        n_samp = int((self._samp_t[slots] > 0).sum())
         args = (self.edge_blocks, self.draft_blocks, self.embed, self.tail,
                 cur, self._edge_cache, self._draft_cache, pos, bt)
         if n_samp:
             samp = (*self._samp_vecs(), self._offsets())
             draft_fn, verify_fn = self._spec_sample_fns(k)
             blobs, scales, zps, drafts, qs = draft_fn(*args, *samp)
+            tail_args = (qs,)
         else:
+            samp, tail_args = (), ()
             draft_fn, verify_fn = self._spec_fns(k)
             blobs, scales, zps, drafts = draft_fn(*args)
         # one uplink message: k per-row-framed [1, D] deltas + the k-1
         # graded drafts, the header (and the RTT) paid once per round; a
         # sampled row also ships the k-1 graded positions' f32 draft
         # distributions the rejection test needs
-        self.transport.charge(
-            self.stats,
-            n_active * (k * (self.cfg.d_model * blobs.element_size()
-                             + _QP_BYTES) + (k - 1) * _TOK_BYTES)
-            + _MSG_BYTES + n_samp * (k - 1) * self.cfg.vocab * 4,
-            phase="decode")
-        vargs = (self.cloud_blocks, self.cloud_tail, blobs, scales, zps,
-                 drafts)
-        if n_samp:
-            toks, n_commit, cur, pos = verify_fn(
-                *vargs, qs, self._cloud_cache, pos, bt, *samp)
-        else:
-            toks, n_commit, cur, pos = verify_fn(
-                *vargs, self._cloud_cache, pos, bt)
+        nbytes = (n_active * (k * (self.cfg.d_model * blobs.element_size()
+                                   + _QP_BYTES) + (k - 1) * _TOK_BYTES)
+                  + _MSG_BYTES + n_samp * (k - 1) * self.cfg.vocab * 4)
+
+        def verify(pos):
+            return verify_fn(self.cloud_blocks, self.cloud_tail, blobs,
+                             scales, zps, drafts, *tail_args,
+                             self._cloud_cache, pos, bt, *samp)
+
+        return (blobs, scales, zps, drafts), nbytes, verify
+
+    def _spec_round(self, cur, pos, slots):
+        bt = self._pool.table_dev()
+        _, nbytes, verify = self._draft_round(cur, pos, bt, slots)
+        self.transport.charge(self.stats, nbytes, phase="decode")
+        toks, n_commit, cur, pos = verify(pos)
         # the edge needs the accept counts to schedule the next round, so
         # this sync is part of the protocol, not a host-loop artifact
         counts = n_commit.cpu().numpy()
-        self.transport.account_downlink(self.stats, n_active, k=k)
+        self.transport.account_downlink(self.stats, len(slots),
+                                        k=self.spec_k)
+        self._count_round(counts, slots)
+        return cur, pos, toks, counts
+
+    def _count_round(self, counts, slots) -> None:
+        """A verified round's counters and its acceptance sample."""
+        k, n_active = self.spec_k, len(slots)
         self.stats.spec_rounds += 1
         hits = int(np.minimum(counts[slots] - 1, k - 1).sum())
         self.stats.drafted_tokens += (k - 1) * n_active
         self.stats.draft_hits += hits
         self.telemetry.observe_round((k - 1) * n_active, hits)
-        return cur, pos, toks, counts
 
     def _retire(self, slot):
         self._pool.retire(slot)

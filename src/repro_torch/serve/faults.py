@@ -20,7 +20,7 @@ Two consumption modes:
   returns a ``FaultOutcome`` and never blocks past the attempt itself.
   A dropped message (or one inside an outage window) costs the sender
   nothing here — the sender discovers the loss by its own deadline and
-  pays for it via ``wait`` (the reliable transport of ROADMAP A12b).
+  pays for it via ``wait`` (``transport.ReliableTransport``).
 * ``transfer_time(nbytes)`` — the naive blocking semantics the
   collaborative engine's plain ``Transport`` assumes: retry forever on
   a fixed ``rto_s`` until the message lands, so a cloud outage simply

@@ -12,9 +12,11 @@ allocator, the block table and every slot's claim.  A demand-paged
 engine reserves only a request's padded prompt plus one round of
 headroom at admission and grows the claim with ``ensure``; a growth the
 free list cannot cover raises ``PoolExhausted`` with nothing changed,
-the scheduler's cue to preempt a victim.  ``table_for`` comes with the
-resilient engine (ROADMAP A12b), the per-tenant accounting with the
-fleet (A13).
+the scheduler's cue to preempt a victim.  ``table_for`` gives the
+device table with every row outside a slot group zeroed, so the rows
+riding along in that group's phase call write into the dump page (the
+resync replay's convention, which the fleet reuses); the per-tenant
+accounting comes with the fleet (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -102,6 +104,7 @@ class _PagedPool:
         self.bt = np.zeros((max_batch, pages_per_slot), np.int32)
         self._slot_pages: Dict[int, List[int]] = {}
         self._dev: Optional[torch.Tensor] = None
+        self._masked: Dict[Tuple[int, ...], torch.Tensor] = {}
 
     @classmethod
     def build(cls, max_batch: int, max_len: int, page_size: int,
@@ -154,7 +157,7 @@ class _PagedPool:
             self._slot_pages[int(s)] = pages
             self.bt[s, :] = 0
             self.bt[s, :len(pages)] = pages
-        self._dev = None
+        self._invalidate()
         return self.rows(slots, padded_len)
 
     def rows(self, slots: Sequence[int], padded_len: int) -> torch.Tensor:
@@ -182,7 +185,7 @@ class _PagedPool:
         grown = self.allocator.alloc(need - len(pages))
         self.bt[s, len(pages):need] = grown
         pages.extend(grown)
-        self._dev = None
+        self._invalidate()
         return True
 
     def retire(self, slot: int) -> None:
@@ -190,7 +193,7 @@ class _PagedPool:
         if pages is not None:
             self.allocator.free(pages)
             self.bt[slot, :] = 0
-            self._dev = None
+            self._invalidate()
 
     # -- pool-pressure observability -----------------------------------------
     def free_pages(self) -> int:
@@ -202,6 +205,11 @@ class _PagedPool:
         out of the denominator)."""
         cap = self.allocator.num_pages - 1
         return (cap - self.allocator.num_free) / max(cap, 1)
+
+    def _invalidate(self) -> None:
+        """The block table changed: drop the cached device tables."""
+        self._dev = None
+        self._masked.clear()
 
     def table_dev(self) -> torch.Tensor:
         """Block table on the device, trimmed to the pages in use
@@ -217,6 +225,19 @@ class _PagedPool:
             width = min(width, self.pages_per_slot)
             self._dev = self._copy(self.bt[:, :width])
         return self._dev
+
+    def table_for(self, slots: Sequence[int]) -> torch.Tensor:
+        """``table_dev``'s table with every row *outside* ``slots``
+        zeroed, so slots riding along in another group's phase call
+        write into the dump page instead of their own pages.  Cached per
+        group until the next admit, ``ensure`` growth or retire."""
+        key = tuple(sorted({int(s) for s in slots}))
+        if key not in self._masked:
+            width = self.table_dev().shape[1]
+            masked = np.zeros((self.bt.shape[0], width), np.int32)
+            masked[list(key)] = self.bt[list(key), :width]
+            self._masked[key] = self._copy(masked)
+        return self._masked[key]
 
 
 def _paged_prefill_view(cache, n: int):

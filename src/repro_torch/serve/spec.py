@@ -35,8 +35,21 @@ The draft length may change between rounds (the adaptive policy): the
 draft cache and every slot's page headroom are sized once for the
 largest k any controller may pick, and a raise out of k = 1 with live
 slots rebuilds their draft K/V from committed state
-(``_rebuild_draft_caches``).  The edge-only degradation and resync
-phases, sampled or not, come with ROADMAP A12b.
+(``_rebuild_draft_caches``).
+
+The mixin also hosts the **degradation** phases of the resilient engine
+(``serve.resilience``), the draft machinery with the verify removed:
+while the cloud is unreachable the edge's INT8 suffix copy stops
+drafting and serves.  ``_edge_only_step_impl`` is one whole local step
+(prefix, boundary, suffix, token; no wire bytes), and
+``_edge_only_prefill_impl`` admits a request on the edge alone; their
+sampled twins draw from the ``CLOUD`` stream with the key the cloud's
+serial step would use.  On reconnect the two ``_resync_*`` phases replay
+the buffered boundary rows through the cloud suffix (the verify's
+q-block form, ungraded) to rebuild its paged KV: from each slot's own
+resume position, or from position 0 with calibration for a slot
+admitted during the outage.  ``phase_calls["edge_only"]`` and
+``["resync"]`` count their calls.
 """
 from __future__ import annotations
 
@@ -80,19 +93,21 @@ class _SpecDraftMixin:
                 lambda *a: self._verify_sample_impl(k, *a))
 
     def _draft_prefill_impl(self, blocks, blob, qp, cache, slots, bt_rows,
-                            plens) -> None:
+                            plens) -> torch.Tensor:
         """Fill the edge's draft cache: the INT8 suffix copy runs the same
         dequantized boundary blob the cloud saw, so the draft model starts
-        every round from the committed prefix state."""
+        every round from the committed prefix state.  Returns the suffix's
+        output rows (the edge-only admission reads its logits off them)."""
         cfg = self.cfg
         h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2), locally
         group = _paged_prefill_view(cache, h.shape[0])
-        _, group = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
+        y, group = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
                                  cache=group, cache_index=0,
                                  qctx=self._edge_qctx, block_tables=bt_rows,
                                  calibrate_kv=self.edge_int8,
                                  kv_lengths=plens)
         _paged_prefill_merge(cache, group, slots)
+        return y
 
     def _draft_steps(self, k, edge_blocks, draft_blocks, embed, tail, cur,
                      e_cache, d_cache, pos, bt, pick
@@ -283,3 +298,120 @@ class _SpecDraftMixin:
                 self._pool.rows(gslots, bucket),
                 torch.tensor(plens, device=self.device))
         self.stats.draft_rebuilds += 1
+
+    # -- degradation phases (serve.resilience) ------------------------------
+    def _edge_only_logits(self, edge_blocks, draft_blocks, embed, tail, cur,
+                          e_cache, d_cache, pos, bt
+                          ) -> Tuple[torch.Tensor, ...]:
+        """One whole local step up to the logits: INT8 prefix → Eq.(1)
+        boundary → INT8 suffix copy — one ``_draft_steps`` iteration, which
+        is what makes edge-only tokens the cloud's in the lossless mode.
+        Returns the ``(blob, qp)`` frame (a round that loses its uplink
+        commits the step without re-running it), the dequantized f32
+        boundary row ``[B, D]`` the resync replays, and the logits."""
+        self.phase_calls["edge_only"] += 1
+        cfg = self.cfg
+        rope = self._rope()
+        x = ML.embed(embed, cur[:, None]).to(cfg.dtype)
+        h, _ = TF.run_blocks(edge_blocks, x, cfg, rope=rope, cache=e_cache,
+                             cache_index=pos, qctx=self._edge_qctx,
+                             block_tables=bt)
+        blob, qp = self._quant_boundary(h)
+        hq = dequantize(blob, qp)                 # Eq.(2): the cloud's view
+        y, _ = TF.run_blocks(draft_blocks, hq.to(cfg.dtype), cfg, rope=rope,
+                             cache=d_cache, cache_index=pos,
+                             qctx=self._edge_qctx, block_tables=bt)
+        return (blob, qp, hq[:, 0].to(torch.float32),
+                TF.lm_head(tail, y)[:, 0])
+
+    def _edge_only_step_impl(self, edge_blocks, draft_blocks, embed, tail,
+                             cur, e_cache, d_cache, pos, bt
+                             ) -> Tuple[torch.Tensor, ...]:
+        """One greedy local step: ``(blob, qp, f32 boundary row, token,
+        new pos)``."""
+        blob, qp, hq, logits = self._edge_only_logits(
+            edge_blocks, draft_blocks, embed, tail, cur, e_cache, d_cache,
+            pos, bt)
+        return (blob, qp, hq, torch.argmax(logits, -1).to(torch.int32),
+                torch.clamp(pos + 1, max=self.max_len - 1))
+
+    def _edge_only_step_sample_impl(self, edge_blocks, draft_blocks, embed,
+                                    tail, cur, e_cache, d_cache, pos, bt,
+                                    temps, top_ps, seeds, offsets
+                                    ) -> Tuple[torch.Tensor, ...]:
+        """Sampled local step: the committed token is the ``CLOUD``-stream
+        draw at output index ``offsets`` from the suffix copy's filtered
+        distribution, the key the cloud's serial step would use, so a
+        lossless edge-only stream is the cloud's sampled stream bit for
+        bit.  Returns what ``_edge_only_step_impl`` returns."""
+        blob, qp, hq, logits = self._edge_only_logits(
+            edge_blocks, draft_blocks, embed, tail, cur, e_cache, d_cache,
+            pos, bt)
+        return (blob, qp, hq,
+                self._sample_or_argmax(logits, temps, top_ps, seeds,
+                                       offsets),
+                torch.clamp(pos + 1, max=self.max_len - 1))
+
+    def _edge_only_prefill_logits(self, blocks, tail, blob, qp, cache, slots,
+                                  bt_rows, plens) -> torch.Tensor:
+        """Admission with the cloud down: the suffix copy plays the
+        cloud's part (a draft prefill of the same blob), and the local
+        head gives the last prompt position's logits."""
+        y = self._draft_prefill_impl(blocks, blob, qp, cache, slots, bt_rows,
+                                     plens)
+        last = y[torch.arange(y.shape[0], device=y.device),
+                 (plens - 1).long()]
+        return TF.lm_head(tail, last[:, None])[:, 0]
+
+    def _edge_only_prefill_impl(self, blocks, tail, blob, qp, cache, slots,
+                                bt_rows, plens, cur, pos
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Greedy edge-only admission: the slots' first tokens and
+        positions, with no wire bytes."""
+        logits = self._edge_only_prefill_logits(blocks, tail, blob, qp, cache,
+                                                slots, bt_rows, plens)
+        return self._set_rows(cur, pos, slots,
+                              torch.argmax(logits, -1).to(torch.int32), plens)
+
+    def _edge_only_prefill_sample_impl(self, blocks, tail, blob, qp, cache,
+                                       slots, bt_rows, plens, cur, pos,
+                                       temps, top_ps, seeds
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sampled edge-only admission: the first token (output index 0)
+        is the ``CLOUD``-stream draw the cloud's sampled prefill would
+        commit; ``temps``/``top_ps``/``seeds`` are aligned with
+        ``slots``."""
+        logits = self._edge_only_prefill_logits(blocks, tail, blob, qp, cache,
+                                                slots, bt_rows, plens)
+        return self._set_rows(cur, pos, slots,
+                              self._sample_or_argmax(logits, temps, top_ps,
+                                                     seeds,
+                                                     torch.zeros_like(seeds)),
+                              plens)
+
+    def _resync_replay_impl(self, blocks, h, cache, pos, bt) -> None:
+        """Rebuild the cloud suffix KV of slots that were live before the
+        outage: one multi-token cached step over the ``[B, R, D]``
+        buffered boundary rows at each slot's own resume position (a
+        vector ``cache_index``, the verify's q-block form).  Rows outside
+        the replay group ride along at position 0 on a zeroed table row,
+        so their writes land in the dump page."""
+        self.phase_calls["resync"] += 1
+        TF.run_blocks(blocks, h.to(self.cfg.dtype), self.cfg,
+                      rope=self._rope(), cache=cache, cache_index=pos,
+                      block_tables=bt)
+
+    def _resync_prefill_impl(self, blocks, h, cache, slots, bt_rows,
+                             lens) -> None:
+        """Rebuild the cloud suffix KV of slots admitted *during* the
+        outage: prefill-style from position 0, calibrating the per-slot
+        INT8 scales the cloud never computed (every buffered row is a
+        real token, so ``lens`` spans them all)."""
+        self.phase_calls["resync"] += 1
+        group = _paged_prefill_view(cache, h.shape[0])
+        _, group = TF.run_blocks(blocks, h.to(self.cfg.dtype), self.cfg,
+                                 rope=self._rope(), cache=group,
+                                 cache_index=0, block_tables=bt_rows,
+                                 calibrate_kv=self.cloud_int8,
+                                 kv_lengths=lens)
+        _paged_prefill_merge(cache, group, slots)

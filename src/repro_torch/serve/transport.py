@@ -1,10 +1,14 @@
 """Channel framing, wire accounting, and link telemetry for serving.
 
-Counterpart of ``repro.serve.transport``: ``Transport``,
+Counterpart of ``repro.serve.transport``, whole: ``Transport``,
 ``LinkTelemetry`` (bandwidth, RTT, draft acceptance and the loss rate
-the lossy-link pricing reads) and ``DriftingChannel``, a channel whose
-conditions follow a schedule over simulated time (the checksum and the
-``ReliableTransport`` come with ROADMAP A12b).  The framing
+the lossy-link pricing reads), ``DriftingChannel``, a channel whose
+conditions follow a schedule over simulated time, the message
+``checksum``, and ``ReliableTransport``: sequence numbers, deadlines
+from the telemetry, seeded backoff and bounded retries, escalating to
+``CloudUnreachable`` (the resilient engine's cue, ``serve.resilience``).
+Host code throughout: for the same channel and seed its counters and
+simulated seconds equal the reference's exactly.  The framing
 constants come from ``core.costmodel`` so the engine's accounting and
 the cost model's predictions cannot drift apart, and every byte charged
 equals the JAX engine's: ``transmitted_bytes`` is the total over the
@@ -16,8 +20,10 @@ the wire); ``decode_tokens`` counts committed tokens.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.costmodel import (Channel, MSG_BYTES, QP_BYTES,
@@ -25,6 +31,7 @@ from repro_torch.core.costmodel import (Channel, MSG_BYTES, QP_BYTES,
 from repro_torch.serve.stats import ServeStats
 
 __all__ = ["ServeStats", "Transport", "LinkTelemetry", "DriftingChannel",
+           "ReliableTransport", "CloudUnreachable", "checksum",
            "_MSG_BYTES", "_QP_BYTES", "_TOK_BYTES"]
 
 # wire framing overhead for one quantized blob: f32 scale + f32 zero-point
@@ -213,10 +220,11 @@ class Transport:
         self.telemetry.observe_transfer(nbytes, t)
         return t
 
-    def charge(self, stats: ServeStats, nbytes: int, *,
-               phase: str) -> None:
+    def charge(self, stats: ServeStats, nbytes: int, *, phase: str,
+               log: bool = True) -> None:
         """One uplink message of ``nbytes`` (header included by caller
-        or via the ``account_*`` wrappers)."""
+        or via the ``account_*`` wrappers); ``log=False`` keeps it out of
+        ``decode_bytes_log`` (a resync replay is not a decode round)."""
         t = self._transfer(stats, nbytes)
         stats.transmitted_bytes += int(nbytes)
         stats.channel_latency_s += t
@@ -224,7 +232,8 @@ class Transport:
             stats.prefill_bytes += int(nbytes)
         else:
             stats.decode_bytes += int(nbytes)
-            stats.decode_bytes_log.append(int(nbytes))
+            if log:
+                stats.decode_bytes_log.append(int(nbytes))
 
     def account_blob(self, stats: ServeStats, blob: torch.Tensor, *,
                      phase: str, rows: Optional[int] = None,
@@ -265,3 +274,132 @@ class Transport:
         stats.downlink_bytes += nbytes
         if phase == "decode":
             stats.decode_downlink_bytes += nbytes
+
+
+def checksum(payload) -> int:
+    """CRC32 of a boundary blob (a tensor, an array or bytes) — the
+    integrity check a receiver runs before acking a message.  The
+    simulated ``FaultyChannel`` flags corruption itself, so the hot path
+    never copies a device blob to hash it; the mechanism is this one."""
+    if isinstance(payload, (bytes, bytearray, memoryview)):
+        return zlib.crc32(payload) & 0xFFFFFFFF
+    if isinstance(payload, torch.Tensor):
+        payload = payload.detach().cpu().numpy()
+    return zlib.crc32(np.ascontiguousarray(payload).tobytes()) & 0xFFFFFFFF
+
+
+class CloudUnreachable(RuntimeError):
+    """Raised by ``ReliableTransport`` when a message exhausts its retry
+    budget — the signal on which a resilient engine declares the cloud
+    down and degrades to edge-only serving."""
+
+
+class ReliableTransport(Transport):
+    """``Transport`` with sequencing, deadlines and bounded retries.
+
+    Every message gets a sequence number (``seq``); retransmissions
+    reuse it, so the receiver can drop duplicates and ack a
+    retransmitted copy of an earlier send (which is what makes a
+    downlink lost after a committed verify harmless).  A send's deadline
+    is ``deadline_margin`` times the telemetry's prediction
+    ``nbytes / bandwidth + rtt``, or ``fallback_deadline_s`` until the
+    fit locks on.  A miss (a silent drop, an outage, or an arrival past
+    the deadline) costs the sender the full deadline of waiting, then a
+    backoff of ``min(backoff_max_s, backoff_base_s * 2**attempt)``
+    times ``1 + U`` with ``U`` drawn from ``np.random.default_rng(seed)``
+    before the retransmit; a checksum failure retransmits at once (after
+    the backoff).  All of it is charged: waiting to
+    ``channel_latency_s``, events to ``retries`` / ``timeouts`` /
+    ``corrupt_msgs``, every attempt to the telemetry's loss EWMA.  After
+    ``max_retries`` retransmits the send raises ``CloudUnreachable``.
+
+    A channel without an ``attempt`` method (a plain ``Channel`` or a
+    ``DriftingChannel``) takes the base transport's path: reliability is
+    free when nothing fails."""
+
+    def __init__(self, channel=None,
+                 telemetry: Optional[LinkTelemetry] = None, *,
+                 max_retries: int = 3, deadline_margin: float = 3.0,
+                 fallback_deadline_s: float = 0.5,
+                 min_deadline_s: float = 0.01, backoff_base_s: float = 0.02,
+                 backoff_max_s: float = 1.0, seed: int = 0):
+        super().__init__(channel, telemetry)
+        self.max_retries = max_retries
+        self.deadline_margin = deadline_margin
+        self.fallback_deadline_s = fallback_deadline_s
+        self.min_deadline_s = min_deadline_s
+        self.backoff_base_s = backoff_base_s
+        self.backoff_max_s = backoff_max_s
+        self._rng = np.random.default_rng(seed)
+        self.seq = 0
+
+    def deadline_for(self, nbytes: float) -> float:
+        bw, rtt = self.telemetry.bandwidth_bytes_per_s, self.telemetry.rtt_s
+        if bw is None:
+            return self.fallback_deadline_s
+        return max(self.min_deadline_s,
+                   self.deadline_margin * (nbytes / bw + (rtt or 0.0)))
+
+    def _backoff(self, attempt: int) -> float:
+        base = min(self.backoff_max_s, self.backoff_base_s * (2 ** attempt))
+        return base * (1.0 + float(self._rng.random()))   # full jitter
+
+    def _wait(self, seconds: float) -> None:
+        wait = getattr(self.channel, "wait", None)
+        if wait is not None:
+            wait(seconds)
+
+    def _transfer(self, stats: ServeStats, nbytes: int) -> float:
+        attempt = getattr(self.channel, "attempt", None)
+        if attempt is None:
+            return super()._transfer(stats, nbytes)
+        self.seq += 1
+        deadline = self.deadline_for(nbytes)
+        spent = 0.0
+        for i in range(self.max_retries + 1):
+            out = attempt(nbytes)
+            ok = out.delivered and not out.corrupt \
+                and out.seconds <= deadline
+            self.telemetry.observe_delivery(ok)
+            if ok:
+                self.telemetry.observe_transfer(nbytes, out.seconds)
+                return spent + out.seconds
+            if out.delivered and out.corrupt:
+                stats.corrupt_msgs += 1          # caught at arrival: resend
+                spent += out.seconds
+            else:
+                stats.timeouts += 1              # discovered at the deadline
+                pause = max(0.0, deadline - out.seconds) \
+                    if out.delivered else deadline
+                self._wait(pause)
+                spent += out.seconds + pause
+            if i < self.max_retries:
+                stats.retries += 1
+                back = self._backoff(i)
+                self._wait(back)
+                spent += back
+        stats.channel_latency_s += spent
+        raise CloudUnreachable(
+            f"seq {self.seq}: {nbytes} B undelivered after "
+            f"{self.max_retries + 1} attempts ({spent:.3f}s)")
+
+    def probe(self, stats: ServeStats) -> Tuple[bool, float]:
+        """One single-attempt heartbeat (a header-only message): is the
+        cloud reachable now?  Returns ``(ok, seconds consumed)``; a miss
+        costs one deadline of waiting, charged to ``stats``."""
+        attempt = getattr(self.channel, "attempt", None)
+        if attempt is None:
+            return True, 0.0
+        deadline = self.deadline_for(_MSG_BYTES)
+        out = attempt(_MSG_BYTES)
+        ok = out.delivered and not out.corrupt and out.seconds <= deadline
+        self.telemetry.observe_delivery(ok)
+        spent = out.seconds
+        if not ok:
+            pause = deadline if not out.delivered \
+                else max(0.0, deadline - out.seconds)
+            self._wait(pause)
+            spent += pause
+            stats.timeouts += 1
+        stats.channel_latency_s += spent
+        return ok, spent

@@ -9,10 +9,13 @@ the collaborative image models: AlexNet's, a SMOKE ResNet's and a
 SMOKE ViT's engines on the card against the CPU (through
 ``chip_smoke._cnn_card_vs_cpu``, the check the script's ``cnn_path``
 runs), and the CNN and vision layers' f32 products in true f32 with the
-caller's TF32 flags left as they were; Eq.(1)'s scale on the card equal
-to the CPU's bit for bit; the online control loop (a scripted cut
-switch and warm k raise) and overload serving (a demand-paged engine
-preempting under pool pressure) on the card against the CPU.
+caller's TF32 flags left as they were; Eq.(1)'s scale and the INT8 KV
+cache's scale on the card equal to the CPU's bit for bit; the online
+control loop (a scripted cut switch and warm k raise) and overload
+serving (a demand-paged engine preempting under pool pressure) on the
+card against the CPU; the tensor-core kernel at the resync replay's
+shape, and the resilient engine through drops and outages on the card
+against the CPU.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine with the card alone:
@@ -1049,3 +1052,59 @@ def test_control_loop_and_preemption_on_card_match_cpu(cuda):
     for tag in ("fixed", "scripted", "worst_case", "demand"):
         assert res["stats"][f"{tag}_cuda"] == res["stats"][f"{tag}_cpu"]
     assert res["stats"]["demand_cuda"]["preemptions"] >= 1
+
+
+@pytest.mark.gpu
+def test_kv_scale_on_card_equals_cpu(cuda):
+    """The INT8 KV pages' calibrated scale (``layers._kv_scale``, the
+    product with f32 ``1/127`` that jitted JAX takes): the card's equal
+    to the CPU's bit for bit on 200,000 f32 ``amax`` values, and on
+    bf16 ones."""
+    rng = np.random.RandomState(127)
+    amax = torch.tensor(np.abs(rng.randn(200_000)
+                               * rng.lognormal(0.0, 3.0, 200_000)
+                               ).astype(np.float32))
+    assert torch.equal(TLY._kv_scale(amax.cuda()).cpu(),
+                       TLY._kv_scale(amax))
+    a16 = amax[:4096].to(torch.bfloat16)
+    assert torch.equal(TLY._kv_scale(a16.cuda()).cpu(), TLY._kv_scale(a16))
+
+
+@pytest.mark.gpu
+def test_tc_kernel_at_the_resync_replay_shape(cuda):
+    """The resilient engine's resync replay at deepseek-7b's widths: 4
+    rows of 24 buffered positions (32 query and kv heads, hd 128, int8
+    pages), three from their own resume positions 100-140 — the
+    tensor-core kernel with a per-row q_start > 0 — and one riding along
+    at position 0 on a zeroed block-table row (the dump page): against
+    the plain version within ``KERNEL_TOL`` of max |plain|."""
+    q_start = [100, 124, 140, 0]
+    args = list(_case(11, dtype=torch.int8, group=1, s=24, n_kv=32,
+                      per=12, lens=[s_ + 24 for s_ in q_start]))
+    args[5] = torch.tensor(q_start, dtype=torch.int32, device="cuda")
+    args[3][3] = 0
+    tc_before = PA.paged_flash_mq.tc_launches
+    out = PA.paged_multiquery_attention(*args)
+    assert PA.paged_flash_mq.tc_launches == tc_before + 1
+    want = PA.paged_attention_mq_ref(*args)
+    torch.cuda.synchronize()
+    tol = _chip_smoke().KERNEL_TOL * max(float(want.abs().max()), 1.0)
+    assert float((out - want).abs().max()) <= tol
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_resilient_engine_on_card_matches_cpu(cuda):
+    """``chip_smoke._resilient_parity`` (the check the script's
+    ``path_parity_resilient`` runs) on a 3-layer SMOKE model, lossless,
+    through drops and two outages: at spec_k = 1 and 4, and sampled at
+    k = 1, each resilient stream equal to the fault-free one on each
+    device; here also every stream and counter of the card equal to the
+    CPU's."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, n_layers=3, dtype=torch.float32)
+    res = cs._resilient_parity(cfg, outages=cs.PARITY_OUTAGES_SMOKE)
+    assert all(res["card_equals_cpu"].values())
+    assert all(res["counters_card_equal_cpu"].values())
+    for tag in ("k1", "k4", "k1_sampled"):
+        assert res["stats"][f"{tag}_cuda"]["resyncs"] >= 1

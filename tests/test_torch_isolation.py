@@ -34,7 +34,8 @@ for n in names:
     importlib.import_module(n)
 assert {"repro_torch.kernels.ops", "repro_torch.kernels.ref",
         "repro_torch.kernels.int8_matmul",
-        "repro_torch.serve.spec", "repro_torch.launch.mesh",
+        "repro_torch.serve.spec", "repro_torch.serve.resilience",
+        "repro_torch.launch.mesh",
         "repro_torch.launch.shardings",
         "repro_torch.serve.sharding", "repro_torch.models.resnet",
         "repro_torch.models.vit", "repro_torch.configs.resnet18",
