@@ -13,7 +13,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
                     gives it (decode, prefill, speculative verify, the
-                    resilient engine's resync replay) and at
+                    resilient engine's resync replay, the fleet's
+                    verify with rows on the dump page) and at
                     a 4,096-position decode, its tensor-parallel form
                     ``paged_flash_mq_sharded`` at the same int8 shapes
                     split over 2 and 4 shards of the one card (per-shard
@@ -119,6 +120,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     end, the k = 1 counts equal to a CPU rehearsal, and
                     the tokens before the first outage equal to the
                     fault-free streams.
+10c. ``fleet_path`` — ``FleetServingEngine`` on the same weights at full
+                    width and depth: four tenants (cuts 14 and 28, k 4
+                    and 1, the reference benchmark's links, one a storm
+                    with drops and an outage), 2 requests x 32 new
+                    tokens each, 8 slots; asserted: every budget, every
+                    page back, finite caches, each tenant's stream equal
+                    to a solo engine's at the fleet's batch shape, the
+                    k = 1 counters and the storm's clock equal to a CPU
+                    rehearsal, calm tenants fault-free, B1 launches by
+                    phase as the group calls imply; then a cross-tenant
+                    preemption run (hog preempted, meek never, counts as
+                    rehearsed).  Reported: round calls, tokens/s beside
+                    the solo engines run one after another, peak memory,
+                    where the tenants' own solo streams (at 8 and 2
+                    slots) leave the fleet's.
 11. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
@@ -140,7 +156,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     through drops and two outages, lossless at k = 1 and
                     4 and sampled at k = 1, equal to the fault-free
                     streams on each device, its k = 1 counters and
-                    ``round_log`` equal card vs CPU.
+                    ``round_log`` equal card vs CPU; then
+                    ``path_parity_fleet``: the four-tenant fleet,
+                    lossless, equal to the solo engines on each device,
+                    its streams and counters card vs CPU.
 12. ``cnn_path`` — collaborative split inference of the image models
                     (``core.collab``): the paper's AlexNet, VGG16 and
                     GoogLeNet, and ResNet-18, ResNet-152, ViT-S/16,
@@ -168,7 +187,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 Then a ``{"kernels": [...]}`` summary line (each row with its
 ``cnn_path_launches``, ``adaptive_path_launches``,
-``overload_path_launches`` and ``resilient_path_launches``), the
+``overload_path_launches``, ``resilient_path_launches`` and
+``fleet_path_launches``), the
 ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
@@ -176,6 +196,7 @@ device is present or the repository's ``src/`` is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -420,21 +441,28 @@ def _paged_case(name, *, b, s, n_heads, n_kv, hd, page, lengths, q_start,
 
 
 def _paged_work(c) -> tuple:
-    """(bytes, flops) this call's data needs: each valid K/V position of
-    each row read once, q read and out written once; QK and AV over the
-    valid (query, key) pairs."""
+    """(bytes, flops) this call's data needs: the K/V positions of each
+    page that some row's valid span reaches, read once however many rows
+    reach them (rows on a zeroed block-table row all read the dump page
+    0), q read and out written once; QK and AV over the valid (query,
+    key) pairs."""
     q, (kp, _), bt = c["q"], c["pools"][0], c["bt"]
     b, s, n_heads, hd = q.shape
-    n_kv = kp.shape[2]
+    page, n_kv = kp.shape[1], kp.shape[2]
     lens = c["lens"].cpu().numpy()
     qs = c["qs"].cpu().numpy()
-    span = bt.shape[1] * kp.shape[1]
-    kv_pos = pairs = 0
+    table = bt.cpu().numpy()
+    span = table.shape[1] * page
+    used, pairs = {}, 0          # page id -> positions read in it
     for i in range(b):
         qpos = qs[i] + np.arange(s)
         n_valid = np.clip(np.minimum(qpos + 1, lens[i]), 0, span)
         pairs += int(n_valid.sum())
-        kv_pos += int(min(lens[i], qs[i] + s, span)) if lens[i] > 0 else 0
+        kv = int(min(lens[i], qs[i] + s, span)) if lens[i] > 0 else 0
+        for j in range(-(-kv // page)):
+            pid = int(table[i, j])
+            used[pid] = max(used.get(pid, 0), min(page, kv - j * page))
+    kv_pos = sum(used.values())
     nbytes = (2 * kv_pos * n_kv * hd * kp.element_size()
               + 2 * q.numel() * 4 + bt.numel() * 4 + 2 * b * 4
               + (2 * b * n_kv * 4 if c["ks"] is not None else 0))
@@ -519,6 +547,18 @@ def phase_kernels() -> list:
         page_dtype=torch.int8, scales=True, seed=7, copies=8)
     replay["bt"][3] = 0
     cases.append(replay)
+    # the fleet's verify: one (cut, k = 4) group's round over the whole
+    # slot axis, the rows of the other groups riding along on zeroed
+    # block-table rows (``_PagedPool.table_for``: they read and write the
+    # dump page)
+    lengths_fleet = [164, 100, 131, 36, 150, 140, 60, 170]
+    fleet = _paged_case(
+        "deepseek7b_fleet_verify_int8", b=8, s=4, n_heads=32, n_kv=32,
+        hd=128, page=16, lengths=lengths_fleet,
+        q_start=[n - 4 for n in lengths_fleet], page_dtype=torch.int8,
+        scales=True, seed=8, copies=24)
+    fleet["bt"][1::2] = 0
+    cases.append(fleet)
     cases.append(_paged_case(
         "phi3_medium_gqa_decode_int8", b=4, s=1, n_heads=40, n_kv=10,
         hd=128, page=16, lengths=lengths_dec,
@@ -2597,7 +2637,8 @@ RESILIENT_PHASES = ("_edge_prefill", "_cloud_prefill", "_draft_prefill_impl",
 class _PhaseLaunches:
     """While active, count each call of ``eng``'s phases ``names`` and
     the B1 launches (split and tensor-core) made inside it, with the
-    replay length R of each resync phase call."""
+    replay length R of each resync phase call and the draft length k of
+    each ``_spec_draft_impl`` call."""
 
     def __init__(self, eng, names):
         self.eng, self.names = eng, names
@@ -2605,6 +2646,7 @@ class _PhaseLaunches:
         self.split = {n: 0 for n in names}
         self.tc = {n: 0 for n in names}
         self.replay_lens = {n: [] for n in names if n.startswith("_resync")}
+        self.draft_ks = []
 
     def __enter__(self):
         from repro_torch.kernels import paged_attention as PA
@@ -2618,6 +2660,8 @@ class _PhaseLaunches:
                 self.split[_n] += fn.launches - l0 - (fn.tc_launches - t0)
                 if _n.startswith("_resync"):
                     self.replay_lens[_n].append(int(a[1].shape[1]))
+                elif _n == "_spec_draft_impl":
+                    self.draft_ks.append(int(a[0]))
                 return out
             setattr(self.eng, n, wrap)
         return self
@@ -2850,18 +2894,615 @@ def rehearse_resilient() -> dict:
     which the schedule does not see), cut 0.  Prints and returns
     ``_resilient_counts``: ``RESILIENT_REHEARSAL``.  Run with
     ``python3 -c "import chip_smoke as c; c.rehearse_resilient()"``."""
-    import dataclasses
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import init_lm
-    cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=2,
-                              vocab=512, d_ff=256, dtype=torch.float32)
-    params = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cfg, params = _rehearsal_model(2)
     run = _resilient_run(params, cfg, device="cpu", cut=0, spec_k=1,
                          kind="resilient")
     counts = _resilient_counts(run)
     print(repr(counts), flush=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10c: the fleet at full width
+# ---------------------------------------------------------------------------
+
+
+# the fleet's tenants — name, cut, k, link (KB/s, RTT ms) — on the links
+# of the reference's BENCH_fleet_serve.json; every channel is a
+# FaultyChannel seeded with the tenant's index, fault-free but for the
+# storm's, which drops FLEET_DROP_P of its messages and is down over
+# FLEET_OUTAGES (picked on the CPU rehearsal, ``rehearse_fleet``, to fall
+# mid-stream: after its prefill, before its last step)
+FLEET_TENANTS = (("edge0", 14, 4, 2000.0, 20.0),
+                 ("edge1", 14, 4, 1000.0, 40.0),
+                 ("edge2", 14, 1, 500.0, 60.0),
+                 ("edge3", 28, 1, 250.0, 80.0))
+FLEET_STORM = "edge3"
+FLEET_DROP_P = 0.05
+FLEET_OUTAGES = ((6.0, 7.0),)
+FLEET_PLEN, FLEET_NEW, FLEET_REQS = 128, 32, 2
+FLEET_MAX_LEN = FLEET_PLEN + FLEET_NEW + 24
+FLEET_SLOTS, FLEET_PAGE = 8, 16
+# the rehearsal's counts: the k = 1 tenants' (they depend only on wire
+# bytes) and the storm channel's
+FLEET_REHEARSAL = {
+    "edge2": dict(prefill_calls=1, prefill_tokens=256, decode_steps=31,
+                  decode_tokens=62, transmitted_bytes=1307392,
+                  prefill_bytes=1048656, decode_bytes=256432,
+                  downlink_bytes=2304, channel_latency_s=6.454784000000012,
+                  stall_wait_s=0.0),
+    "edge3": dict(prefill_calls=1, prefill_tokens=256, decode_steps=31,
+                  decode_tokens=62, transmitted_bytes=1307392,
+                  prefill_bytes=1048656, decode_bytes=256432,
+                  downlink_bytes=2304, channel_latency_s=12.34956799999999,
+                  stall_wait_s=0.0),
+    "storm": dict(faults={"drop": 1, "corrupt": 0, "stall": 0, "outage": 1},
+                  attempts=66, clock_s=12.34956799999999)}
+# the cross-tenant preemption run: two tenants at cut 14, k 1, "hog"
+# with 3 requests and "meek" with 1, 4 slots, demand-paged on a pool
+# whose 36 usable pages hold the four admissions (9 pages each) but not
+# their growth to 10: the first page fault mid-decode must preempt
+FLEET_PREEMPT_PAGES = 37
+FLEET_PREEMPT_REHEARSAL = {
+    "hog": dict(preemptions=1, prefill_calls=2, prefill_tokens=528,
+                decode_steps=46, decode_tokens=93,
+                transmitted_bytes=2550924),
+    "meek": dict(preemptions=0, prefill_calls=1, prefill_tokens=128,
+                 decode_steps=31, decode_tokens=31,
+                 transmitted_bytes=655744)}
+FLEET_PHASES = ("_edge_prefill", "_cloud_prefill", "_draft_prefill_impl",
+                "_edge_decode", "_cloud_decode", "_spec_draft_impl",
+                "_verify_impl")
+
+
+def _fleet_specs(tenants, cuts, outages):
+    """``TenantSpec``s of ``tenants`` (name, cut, k, KB/s, RTT ms), each
+    cut mapped through ``cuts``, on fresh channels."""
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve import FaultyChannel, TenantSpec
+    specs = []
+    for i, (name, cut, k, kbps, rtt) in enumerate(tenants):
+        base = Channel.from_kbps(kbps, rtt_ms=rtt)
+        ch = (FaultyChannel(base, seed=i, drop_p=FLEET_DROP_P,
+                            outages=[list(w) for w in outages])
+              if name == FLEET_STORM else FaultyChannel(base, seed=i))
+        specs.append(TenantSpec(name, ch, cut_layer=cuts.get(cut, cut),
+                                spec_k=k))
+    return specs
+
+
+def _fleet_prompts(tenants, vocab, lens=None) -> dict:
+    """Each tenant's prompts: ``FLEET_REQS`` of ``FLEET_PLEN`` tokens, or
+    of ``lens[name]``, seeded by the tenant's index."""
+    out = {}
+    for i, (name, *_rest) in enumerate(tenants):
+        rng = np.random.RandomState(20 + i)
+        ns = lens[name] if lens else [FLEET_PLEN] * FLEET_REQS
+        out[name] = [rng.randint(0, vocab, n).astype(np.int32) for n in ns]
+    return out
+
+
+def _cache_finite(runtimes) -> bool:
+    return all(bool(torch.isfinite(v).all())
+               for rt in runtimes
+               for c in (rt._edge_cache, rt._cloud_cache, rt._draft_cache)
+               if c is not None
+               for v in c.values() if v.is_floating_point())
+
+
+def _fleet_run(params, cfg, *, device, specs, prompts, max_new,
+               max_batch=FLEET_SLOTS, max_len=FLEET_MAX_LEN,
+               page=FLEET_PAGE, logits=False, **kw) -> dict:
+    """One run of a fresh ``FleetServingEngine`` over ``specs`` with
+    every kernel's launch count set to 0 just before it and read just
+    after: the streams, each tenant's counters and channel, the round
+    calls, and each runtime's phase calls with the B1 launches (split
+    and tensor-core) made inside them; with ``logits`` also each
+    committed index's logits (``_CommittedLogits``)."""
+    from repro_torch.serve import FleetServingEngine
+    fleet = FleetServingEngine(params, cfg, specs, max_batch=max_batch,
+                               max_len=max_len, page_size=page,
+                               device=device, **kw)
+    for c in sorted({s.cut_layer for s in specs}):
+        fleet._runtime(c)
+    phs = {c: _PhaseLaunches(rt, FLEET_PHASES)
+           for c, rt in fleet._runtimes.items()}
+    for ph in phs.values():
+        ph.__enter__()
+    rec = _CommittedLogits(fleet, fleet=True) if logits else None
+    if rec:
+        rec.__enter__()
+    cuda = torch.device(device).type == "cuda"
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = fleet.generate(prompts, max_new_tokens=max_new)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        by_row = _launch_counts()
+    finally:
+        if rec:
+            rec.__exit__()
+        for ph in phs.values():
+            ph.__exit__()
+            ph.eng = None
+    a = fleet._pool.allocator
+    tenants = fleet._tenants
+    res = dict(
+        outs=outs, wall=wall, by_row=by_row,
+        logits=rec.rows if rec else None,
+        tokens=sum(len(o) for v in outs.values() for o in v),
+        stats={n: t.stats for n, t in tenants.items()},
+        clocks={n: t.transport.channel.clock_s for n, t in tenants.items()},
+        faults={n: dict(t.transport.channel.faults)
+                for n, t in tenants.items()},
+        attempts={n: t.transport.channel.attempts
+                  for n, t in tenants.items()},
+        round_calls=fleet.round_calls, num_pages=a.num_pages,
+        pages_back=a.num_free == a.num_pages - 1 and not a.live,
+        owner_pages={n: fleet._pool.owner_pages(n) for n in tenants},
+        finite=_cache_finite(fleet._runtimes.values()),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        runtimes={c: dict(n_edge=rt.n_edge, n_cloud=rt.n_cloud,
+                          calls=dict(phs[c].calls),
+                          split=dict(phs[c].split), tc=dict(phs[c].tc),
+                          draft_ks=list(phs[c].draft_ks))
+                  for c, rt in fleet._runtimes.items()})
+    del fleet
+    _free(device)
+    return res
+
+
+def _fleet_launch_checks(run, n_layers) -> dict:
+    """B1's launches against what the phase calls imply, per runtime
+    and phase: (split, tensor-core); every launch inside a phase; every
+    round a decode or a draft call."""
+    got, want = {}, {}
+    for c, rt in run["runtimes"].items():
+        e, cl = rt["n_edge"], rt["n_cloud"]
+        per = {"_edge_prefill": (0, e), "_cloud_prefill": (0, cl),
+               "_draft_prefill_impl": (0, cl), "_edge_decode": (e, 0),
+               "_cloud_decode": (cl, 0), "_verify_impl": (cl, 0)}
+        for n, calls in rt["calls"].items():
+            got[f"{c}{n}"] = (rt["split"][n], rt["tc"][n])
+            want[f"{c}{n}"] = ((sum(rt["draft_ks"]) * n_layers, 0)
+                               if n == "_spec_draft_impl" else
+                               (calls * per[n][0], calls * per[n][1]))
+    attributed = sum(s + t for s, t in got.values())
+    rounds = sum(rt["calls"]["_edge_decode"] + rt["calls"]["_spec_draft_impl"]
+                 for rt in run["runtimes"].values())
+    return dict(phase_launches_as_designed=got == want,
+                every_launch_in_a_phase=attributed
+                == run["by_row"]["paged_flash_mq"],
+                rounds_are_group_calls=rounds == run["round_calls"],
+                tc_launches_are_prefills=sum(t for _, t in got.values())
+                == run["by_row"]["paged_flash_mq_tc"])
+
+
+def _fleet_counts(run) -> dict:
+    """The schedule a CPU rehearsal fixes: the k = 1 tenants' counters
+    (byte-driven), the storm channel's faults, attempts and clock."""
+    keep = ("prefill_calls", "prefill_tokens", "decode_steps",
+            "decode_tokens", "transmitted_bytes", "prefill_bytes",
+            "decode_bytes", "downlink_bytes", "channel_latency_s",
+            "stall_wait_s")
+    out = {n: {f: getattr(run["stats"][n], f) for f in keep}
+           for n, _c, k, *_r in FLEET_TENANTS if k == 1}
+    out["storm"] = dict(faults=run["faults"][FLEET_STORM],
+                        attempts=run["attempts"][FLEET_STORM],
+                        clock_s=run["clocks"][FLEET_STORM])
+    return out
+
+
+def _preempt_specs():
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.serve import FaultyChannel, TenantSpec
+    return [TenantSpec("hog", FaultyChannel(
+                Channel.from_kbps(2000.0, rtt_ms=20.0), seed=0),
+                cut_layer=14, spec_k=1),
+            TenantSpec("meek", FaultyChannel(
+                Channel.from_kbps(500.0, rtt_ms=60.0), seed=1),
+                cut_layer=14, spec_k=1)]
+
+
+def _preempt_run(params, cfg, *, device, cuts) -> dict:
+    specs = _preempt_specs()
+    for s in specs:
+        s.cut_layer = cuts.get(s.cut_layer, s.cut_layer)
+    prompts = _fleet_prompts((("hog",), ("meek",)), cfg.vocab,
+                             lens={"hog": [FLEET_PLEN] * 3,
+                                   "meek": [FLEET_PLEN]})
+    return _fleet_run(params, cfg, device=device, specs=specs,
+                      prompts=prompts, max_new=FLEET_NEW, max_batch=4,
+                      num_pages=FLEET_PREEMPT_PAGES, demand_paged=True)
+
+
+def _preempt_counts(run) -> dict:
+    keep = ("preemptions", "prefill_calls", "prefill_tokens",
+            "decode_steps", "decode_tokens", "transmitted_bytes")
+    return {n: {f: getattr(st, f) for f in keep}
+            for n, st in run["stats"].items()}
+
+
+class _CommittedLogits:
+    """While active, keep on the device the f32 logits each committed
+    output index of every request of ``eng`` came from: ``rows[key, i]``,
+    ``key`` the request's uid on a solo engine and (tenant, uid) on a
+    fleet.  Index 0 comes from the prefill, index ``c + j`` from row j
+    of a decode or verify round over a slot whose request had ``c``
+    tokens committed before it; a round that computes a position again
+    overwrites it, so each position's last record is its committed one.
+    Only copies on the device: no host sync is added."""
+
+    def __init__(self, eng, fleet: bool = False):
+        self.eng, self.fleet, self.rows = eng, fleet, {}
+        self._undo = []
+
+    def _key(self, r):
+        return (r.tenant, r.uid) if self.fleet else r.uid
+
+    def _wrap(self, obj, name, make):
+        own = obj.__dict__.get(name)        # a module's or an instance's
+        setattr(obj, name, make(getattr(obj, name)))
+        self._undo.append((obj, name, own))
+
+    def __enter__(self):
+        from repro_torch.models import transformer as TF
+        eng, rows = self.eng, self.rows
+        pending, inside = [], []      # prefill keys; decode round slots
+
+        def keep(key, i, row):
+            rows[key, i] = row.to(torch.float32, copy=True)
+
+        def head(orig):
+            def fn(tail, x):
+                logits = orig(tail, x)
+                if inside:
+                    for slot in inside[-1]:
+                        r, c = eng._sched_active[slot]
+                        for j in range(logits.shape[1]):
+                            keep(self._key(r), c + j, logits[slot, j])
+                return logits
+            return fn
+
+        def round_phase(orig, slots):
+            def fn(*args, **kw):
+                inside.append(slots())
+                try:
+                    return orig(*args, **kw)
+                finally:
+                    inside.pop()
+            return fn
+
+        def prefill_body(orig):
+            def fn(*args, **kw):
+                logits = orig(*args, **kw)
+                for n, key in enumerate(pending.pop(0)):
+                    if key is not None:
+                        keep(key, 0, logits[n])
+                return logits
+            return fn
+
+        def admit(orig):
+            # a resumed request's index 0 is its parked token, not the
+            # prefill's
+            def fn(group, *args, **kw):
+                pending.append([None if r._parked is not None
+                                else self._key(r) for r in group])
+                return orig(group, *args, **kw)
+            return fn
+
+        self._wrap(TF, "lm_head", head)
+        if self.fleet:
+            group = [()]
+
+            def group_round(orig):
+                def fn(runtime, k, slots_g, *args, **kw):
+                    group[0] = [int(s) for s in slots_g]
+                    return orig(runtime, k, slots_g, *args, **kw)
+                return fn
+
+            self._wrap(eng, "_admit_group", admit)
+            self._wrap(eng, "_group_round", group_round)
+            for rt in eng._runtimes.values():
+                self._wrap(rt, "_cloud_prefill_body", prefill_body)
+                for name in ("_cloud_decode_merge_impl",
+                             "_verify_merge_impl"):
+                    self._wrap(rt, name, lambda o: round_phase(
+                        o, lambda: group[0]))
+        else:
+            self._wrap(eng, "_prefill_group", admit)
+            self._wrap(eng, "_cloud_prefill_body", prefill_body)
+            for name in ("_cloud_decode", "_verify_impl"):
+                self._wrap(eng, name, lambda o: round_phase(
+                    o, lambda: list(eng._sched_active)))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, own in reversed(self._undo):
+            if own is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, own)
+        self._undo, self.eng = [], None
+
+
+def _solo_runs(params, cfg, *, device, jobs, num_pages=None,
+               logits=False, max_len=FLEET_MAX_LEN, max_new=FLEET_NEW,
+               **kw) -> dict:
+    """Solo ``CollaborativeServingEngine`` runs: ``jobs`` maps a tag to
+    (cut, k, max_batch, channel, prompts); one engine per (cut, k,
+    max_batch), on ``num_pages`` at the fleet's ``max_batch``, reused
+    with a fresh transport and stats, freed before the next.  Returns
+    per tag the streams, stats, wall, and with ``logits`` each committed
+    index's logits (``_CommittedLogits``)."""
+    from repro_torch.serve import CollaborativeServingEngine, Transport
+    from repro_torch.serve.stats import ServeStats
+    out = {}
+    keys = sorted({j[:3] for j in jobs.values()})
+    for cut, k, mb in keys:
+        eng = CollaborativeServingEngine(
+            params, cfg, cut_layer=cut, spec_k=k, max_batch=mb,
+            max_len=max_len, page_size=FLEET_PAGE,
+            num_pages=num_pages if mb == FLEET_SLOTS else None,
+            device=device, **kw)
+        for tag, (c_, k_, mb_, ch, prompts) in jobs.items():
+            if (c_, k_, mb_) != (cut, k, mb):
+                continue
+            eng.transport, eng.stats = Transport(ch), ServeStats()
+            rec = _CommittedLogits(eng) if logits else None
+            t0 = time.perf_counter()
+            with rec or contextlib.nullcontext():
+                outs = eng.generate(prompts, max_new_tokens=max_new)
+            _sync(device)
+            out[tag] = dict(outs=outs, stats=eng.stats,
+                            logits=rec.rows if rec else None,
+                            wall=time.perf_counter() - t0)
+        del eng
+        _free(device)
+    return out
+
+
+def _fleet_divergence(tenant, fleet, solo) -> dict:
+    """Where each of ``tenant``'s fleet streams first leaves its stream
+    on a solo engine, read from the committed logits both runs recorded
+    (``_CommittedLogits``): each computed that index after the same
+    tokens, through GEMMs of other row counts where the request was
+    prefilled in another group or batch.  A row is a near-tie, as
+    ``_index0`` holds a request prefilled in another group, when the two
+    top logits and each run's logits at either run's token agree within
+    ``INT8_NOISE_TOL``; ``recorded`` says each run's logits give its own
+    token.  Also the top-2 gaps there and the largest difference of the
+    top logits over the agreeing indices before it."""
+    rows = []
+    for uid, (x, y) in enumerate(zip(fleet["outs"][tenant], solo["outs"])):
+        i = next((j for j in range(min(len(x), len(y))) if x[j] != y[j]),
+                 None)
+        row = dict(request=uid, first_divergent=i)
+        if i is not None:
+            la = fleet["logits"][(tenant, uid), i].double().cpu()
+            lb = solo["logits"][uid, i].double().cpu()
+            ta, tb = int(x[i]), int(y[i])
+            top_a, top_b = torch.topk(la, 2).values, torch.topk(lb, 2).values
+            diff = max(abs(float(la[t] - lb[t])) for t in (ta, tb))
+            diff = max(diff, abs(float(top_a[0] - top_b[0])))
+            noise = max((abs(float(fleet["logits"][(tenant, uid), j].max()
+                                   - solo["logits"][uid, j].max()))
+                         for j in range(i)), default=0.0)
+            row.update(tokens=[ta, tb],
+                       top2_gaps=[float(top_a[0] - top_a[1]),
+                                  float(top_b[0] - top_b[1])],
+                       logit_diff=diff,
+                       row_max_diff=float((la - lb).abs().max()),
+                       top_logit_noise_before=noise,
+                       recorded=bool(la[ta] == top_a[0]
+                                     and lb[tb] == top_b[0]),
+                       near_tie=diff <= INT8_NOISE_TOL)
+        rows.append(row)
+    return dict(equal=fleet["outs"][tenant] == solo["outs"], requests=rows)
+
+
+def phase_fleet_path(params, cfg, *, device="cuda") -> dict:
+    """The fleet on the main path's weights at full width and depth:
+    ``FleetServingEngine`` with the four ``FLEET_TENANTS`` (cuts 14 and
+    28, k 4 and 1), 2 requests x 32 new tokens after 128-token prompts
+    each, all arriving at 0, 8 slots, INT8 paged KV, page 16: three
+    (cut, k) groups a turn.  Then the cross-tenant preemption run.
+
+    Asserted: every budget filled and every page back; the caches
+    finite; each tenant's stream equal, bit for bit, to its requests on
+    a solo ``CollaborativeServingEngine`` of the same cut and k at the
+    fleet's batch shape (``max_batch``, ``num_pages``, page size, and
+    the prefill group its requests were admitted in — cuBLAS picks a
+    GEMM's algorithm by its row count); the k = 1 tenants' counters and
+    the storm channel's faults, attempts and clock equal to the CPU
+    rehearsal's (``FLEET_REHEARSAL``); the calm tenants with no fault
+    and clocks below the storm's; B1's split and tensor-core launches
+    those the phase calls imply, every launch inside a phase, every
+    round one group call; each tenant's own requests alone on a solo
+    engine at the fleet's batch shape (prefilled without their
+    co-tenants), wherever they leave the fleet's stream, leaving it at
+    a near-tie within ``INT8_NOISE_TOL`` (``_fleet_divergence``, the
+    rule ``_index0`` holds a request prefilled in another group to).
+    Preemption: hog preempted, meek never, every budget filled, every
+    page back, the counts equal to the rehearsal's
+    (``FLEET_PREEMPT_REHEARSAL``).
+
+    Reported: round calls beside the solo engines' rounds; tokens/s of
+    the fleet and of the solo engines (each tenant's own requests at
+    the fleet's batch shape) run one after another, both recording
+    their committed logits; peak memory; the own requests' first
+    divergences with their gaps and logit differences; the same for
+    each tenant's stream on a solo engine at ``max_batch`` 2 (the
+    reference test's shape)."""
+    from repro_torch.core.costmodel import Channel
+
+    n_layers = cfg.n_layers
+    prompts = _fleet_prompts(FLEET_TENANTS, cfg.vocab)
+    run = _fleet_run(params, cfg, device=device,
+                     specs=_fleet_specs(FLEET_TENANTS, {}, FLEET_OUTAGES),
+                     prompts=prompts, max_new=FLEET_NEW, logits=True)
+    outs = run["outs"]
+    # the solo engines: each tenant's own requests (timed) and at
+    # max_batch 2 on its own link; and the requests of each cut-14
+    # admission group at k 4 and at k 1 on edge0's link
+    links = {name: Channel.from_kbps(kbps, rtt_ms=rtt)
+             for name, _c, _k, kbps, rtt in FLEET_TENANTS}
+    group14 = [p for name, c, *_r in FLEET_TENANTS if c == 14
+               for p in prompts[name]]
+    own = {name: (c, k, FLEET_SLOTS, links[name], prompts[name])
+           for name, c, k, *_r in FLEET_TENANTS}
+    shaped = {"group14_k4": (14, 4, FLEET_SLOTS, links["edge0"], group14),
+              "group14_k1": (14, 1, FLEET_SLOTS, links["edge0"], group14)}
+    solo = _solo_runs(params, cfg, device=device, jobs={**own, **shaped},
+                      num_pages=run["num_pages"], logits=True)
+    mb2 = _solo_runs(params, cfg, device=device, logits=True,
+                     jobs={name: (c, k, 2, links[name], prompts[name])
+                           for name, c, k, *_r in FLEET_TENANTS})
+    # each tenant's rows in the solo run of its fleet batch shape
+    pos14 = {name: i for i, name in enumerate(
+        n for n, c, *_r in FLEET_TENANTS if c == 14)}
+    want = {}
+    for name, c, k, *_r in FLEET_TENANTS:
+        if c == 14:
+            rows = solo[f"group14_k{k}"]["outs"]
+            want[name] = rows[FLEET_REQS * pos14[name]:
+                              FLEET_REQS * (pos14[name] + 1)]
+        else:
+            want[name] = solo[name]["outs"]
+    own_div = {n: _fleet_divergence(n, run, solo[n])
+               for n, *_r in FLEET_TENANTS}
+    checks = dict(
+        full_budgets=all(len(o) == FLEET_NEW for v in outs.values()
+                         for o in v),
+        pages_back=run["pages_back"], caches_finite=run["finite"],
+        streams_equal_solo_at_fleet_shape={
+            n: outs[n] == want[n] for n, *_r in FLEET_TENANTS},
+        own_requests_solo_near_ties={
+            n: all(r.get("recorded", True) and r.get("near_tie", True)
+                   for r in own_div[n]["requests"])
+            for n, *_r in FLEET_TENANTS},
+        calm_fault_free=all(sum(run["faults"][n].values()) == 0
+                            for n, *_r in FLEET_TENANTS
+                            if n != FLEET_STORM),
+        calm_clocks_below_storm=all(
+            run["clocks"][n] < run["clocks"][FLEET_STORM]
+            for n, *_r in FLEET_TENANTS if n != FLEET_STORM),
+        storm_faulted=sum(run["faults"][FLEET_STORM].values()) > 0,
+        **(_fleet_launch_checks(run, n_layers)
+           if torch.device(device).type == "cuda" else {}))
+    counts = _fleet_counts(run)
+    checks["counts_equal_rehearsal"] = counts == FLEET_REHEARSAL
+    pre = _preempt_run(params, cfg, device=device, cuts={})
+    pst = pre["stats"]
+    pcounts = _preempt_counts(pre)
+    pchecks = dict(
+        hog_preempted=pst["hog"].preemptions >= 1,
+        meek_never=pst["meek"].preemptions == 0,
+        full_budgets=all(len(o) == FLEET_NEW for v in pre["outs"].values()
+                         for o in v),
+        pages_back=pre["pages_back"], caches_finite=pre["finite"],
+        **(_fleet_launch_checks(pre, n_layers)
+           if torch.device(device).type == "cuda" else {}))
+    pchecks["counts_equal_rehearsal"] = pcounts == FLEET_PREEMPT_REHEARSAL
+    own_wall = sum(solo[n]["wall"] for n, *_r in FLEET_TENANTS)
+    own_tokens = sum(len(o) for n, *_r in FLEET_TENANTS
+                     for o in solo[n]["outs"])
+    split = run["by_row"]["paged_flash_mq"] - run["by_row"][
+        "paged_flash_mq_tc"]
+    res = dict(
+        arch=cfg.name, layers=n_layers, slots=FLEET_SLOTS,
+        prompt_len=FLEET_PLEN, max_new=FLEET_NEW, page=FLEET_PAGE,
+        max_len=FLEET_MAX_LEN, num_pages=run["num_pages"],
+        tenants=[list(t) for t in FLEET_TENANTS], storm=FLEET_STORM,
+        drop_p=FLEET_DROP_P, outages=[list(w) for w in FLEET_OUTAGES],
+        reduced=None, wall_s=run["wall"], tokens=run["tokens"],
+        tokens_per_s=run["tokens"] / run["wall"],
+        solo_sequential=dict(wall_s=own_wall, tokens=own_tokens,
+                             tokens_per_s=own_tokens / own_wall,
+                             rounds=sum(solo[n]["stats"].decode_steps
+                                        for n, *_r in FLEET_TENANTS)),
+        round_calls=run["round_calls"], peak_gb=run["peak_gb"],
+        split_launches=split,
+        tc_launches=run["by_row"]["paged_flash_mq_tc"],
+        phase_calls={c: rt["calls"] for c, rt in run["runtimes"].items()},
+        per_tenant={n: dict(
+            decode_steps=run["stats"][n].decode_steps,
+            spec_rounds=run["stats"][n].spec_rounds,
+            acceptance=run["stats"][n].acceptance_rate(),
+            transmitted_bytes=run["stats"][n].transmitted_bytes,
+            clock_s=run["clocks"][n], faults=run["faults"][n],
+            attempts=run["attempts"][n])
+            for n, *_r in FLEET_TENANTS},
+        own_requests_solo=own_div, int8_noise_tol=INT8_NOISE_TOL,
+        max_batch2={n: _fleet_divergence(n, run, mb2[n])
+                    for n, *_r in FLEET_TENANTS},
+        counts=counts, checks=checks,
+        preemption=dict(
+            slots=4, num_pages=FLEET_PREEMPT_PAGES, wall_s=pre["wall"],
+            tokens=pre["tokens"], tokens_per_s=pre["tokens"] / pre["wall"],
+            preemptions={n: st.preemptions for n, st in pst.items()},
+            split_launches=pre["by_row"]["paged_flash_mq"]
+            - pre["by_row"]["paged_flash_mq_tc"],
+            tc_launches=pre["by_row"]["paged_flash_mq_tc"],
+            counts=pcounts, checks=pchecks),
+        launches=_sum_rows(run["by_row"], pre["by_row"]))
+    emit("fleet_path", **res)
+    bad = {t: {c: v for c, v in ch.items()
+               if v is not True and not (isinstance(v, dict)
+                                         and all(v.values()))}
+           for t, ch in (("fleet", checks), ("preemption", pchecks))}
+    if any(bad.values()):
+        raise AssertionError(f"fleet path: failed checks {bad}")
+    return res
+
+
+def _rehearsal_model(n_layers: int):
+    """deepseek-7b's width (d_model 4096: the same wire bytes) at
+    ``n_layers``, with a small vocabulary and FFN the schedule does not
+    see, f32, seed 0, on the CPU: ``(cfg, params)``."""
+    import dataclasses
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+    cfg = dataclasses.replace(get_arch("deepseek-7b").full,
+                              n_layers=n_layers, vocab=512, d_ff=256,
+                              dtype=torch.float32)
+    return cfg, init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def rehearse_fleet() -> tuple:
+    """The fleet path's byte-driven schedule on this host's CPU, on
+    ``_rehearsal_model`` at 3 layers (the fleet's cuts 14 and 28 map to
+    0 and 1): prints and returns ``_fleet_counts`` of the
+    four-tenant run (``FLEET_REHEARSAL``) and ``_preempt_counts`` of the
+    preemption run (``FLEET_PREEMPT_REHEARSAL``), with the storm's
+    per-message log for placing ``FLEET_OUTAGES``.  Run with
+    ``python3 -c "import chip_smoke as c; c.rehearse_fleet()"``."""
+    cfg, params = _rehearsal_model(3)
+    cuts = {14: 0, 28: 1}
+    specs = _fleet_specs(FLEET_TENANTS, cuts, FLEET_OUTAGES)
+    storm = next(s for s in specs if s.name == FLEET_STORM).channel
+    log, orig = [], storm.attempt
+
+    def attempt(nbytes):
+        out = orig(nbytes)
+        log.append((round(storm.clock_s, 3), int(nbytes), out.kind))
+        return out
+
+    storm.attempt = attempt
+    run = _fleet_run(params, cfg, device="cpu", specs=specs,
+                     prompts=_fleet_prompts(FLEET_TENANTS, cfg.vocab),
+                     max_new=FLEET_NEW)
+    counts = _fleet_counts(run)
+    pcounts = _preempt_counts(_preempt_run(params, cfg, device="cpu",
+                                           cuts=cuts))
+    print("storm messages", log, flush=True)
+    print("FLEET_REHEARSAL =", repr(counts), flush=True)
+    print("FLEET_PREEMPT_REHEARSAL =", repr(pcounts), flush=True)
+    return counts, pcounts
 
 
 def _sync(device) -> None:
@@ -3093,6 +3734,7 @@ def phase_path_parity() -> None:
     torch.cuda.empty_cache()
     _control_parity()
     _resilient_parity()
+    _fleet_parity()
 
 
 def _control_parity(cfg=None) -> dict:
@@ -3355,6 +3997,117 @@ def _resilient_parity(cfg=None, outages=None) -> dict:
          max_new=PARITY_MAX_NEW, drop_p=PARITY_DROP_P,
          outages=[list(w) for w in outages], tol=PARITY_TOL,
          resilient_equals_fault_free=True, near_ties=checked, **res)
+    return res
+
+
+# the fleet's 3-layer parity: the four tenants with cuts 14 and 28 at 0
+# and 1, each tenant's two prompts in a prefill bucket of its own, so
+# every admission group is one tenant's requests and its solo engine
+# prefills the same rows (``fleet_path`` holds tenants that share a
+# prefill group, at full size); the storm's outage, mid-stream at d_model
+# 4096 (f32 rows: 16 KB), and the same for the ``gpu`` test's 3-layer
+# SMOKE model (d_model 64), each picked on a CPU run of this traffic
+FLEET_PARITY_LENS = {"edge0": [5, 7], "edge1": [12, 15], "edge2": [20, 30],
+                     "edge3": [33, 40]}
+FLEET_PARITY_NEW = 8
+FLEET_PARITY_OUTAGES = ((6.0, 7.0),)
+FLEET_PARITY_OUTAGES_SMOKE = ((1.0, 1.5),)
+LOSSLESS_FP = dict(a_bits=None, edge_int8=False, cloud_int8=False)
+
+
+def _fleet_parity_runs(p, cfg, dev, prompts, outages,
+                       conf=LOSSLESS_FP) -> tuple:
+    """The fleet (lossless unless ``conf`` says otherwise) and each
+    tenant's solo engine at the fleet's batch shape, on one device:
+    ``(fleet run, solo streams)``."""
+    cuts = {14: 0, 28: 1}
+    run = _fleet_run(p, cfg, device=dev,
+                     specs=_fleet_specs(FLEET_TENANTS, cuts, outages),
+                     prompts=prompts, max_new=FLEET_PARITY_NEW, max_len=64,
+                     **conf)
+    solo = _solo_runs(
+        p, cfg, device=dev, num_pages=run["num_pages"], max_len=64,
+        max_new=FLEET_PARITY_NEW,
+        jobs={name: (cuts[c], k, FLEET_SLOTS, None, prompts[name])
+              for name, c, k, *_r in FLEET_TENANTS}, **conf)
+    return run, {n: v["outs"] for n, v in solo.items()}
+
+
+def _fleet_parity(cfg=None, outages=None) -> dict:
+    """The fleet, lossless (``a_bits=None``, fp pages), f32, on the card
+    and on the CPU (the CPU port is held to the JAX fleet by
+    ``tests/test_torch_fleet_*.py``); ``cfg`` defaults to deepseek-7b at
+    full width and 3 layers, ``outages`` to ``FLEET_PARITY_OUTAGES``
+    (the ``gpu`` tests pass a smaller model and its window).  The four
+    ``FLEET_TENANTS`` at cuts 0 and 1 with the storm's drops and outage,
+    prompts of ``FLEET_PARITY_LENS``.
+
+    Asserted on each device: every tenant's fleet stream equal to its
+    solo engine's at the fleet's batch shape; every budget filled,
+    every page back, every cache finite.  Card against CPU: each
+    tenant's streams equal, or a near-tie at the first divergence
+    (``_near_ties``: the devices sum a GEMM in other orders); the k = 1
+    tenants' counters and the storm's faults, attempts and clock equal
+    (byte-driven), and a k = 4 tenant's counters wherever its streams
+    are equal."""
+    import dataclasses
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=3,
+                                  dtype=torch.float32)
+    outages = FLEET_PARITY_OUTAGES if outages is None else outages
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p_gpu = init_lm(cfg, torch.Generator(device="cuda").manual_seed(4),
+                        device="cuda")
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        prompts = _fleet_prompts(FLEET_TENANTS, cfg.vocab,
+                                 lens=FLEET_PARITY_LENS)
+        runs, solos, checks = {}, {}, {}
+        for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+            runs[dev], solos[dev] = _fleet_parity_runs(p, cfg, dev, prompts,
+                                                       outages)
+            run = runs[dev]
+            checks[dev] = dict(
+                streams_equal_solo={n: run["outs"][n] == solos[dev][n]
+                                    for n, *_r in FLEET_TENANTS},
+                full_budgets=all(len(o) == FLEET_PARITY_NEW
+                                 for v in run["outs"].values() for o in v),
+                pages_back=run["pages_back"], caches_finite=run["finite"],
+                storm_faulted=sum(run["faults"][FLEET_STORM].values()) > 0)
+        near = {n: _near_ties(runs["cuda"]["outs"][n],
+                              runs["cpu"]["outs"][n], prompts[n], p_gpu,
+                              p_cpu, cfg)
+                for n, *_r in FLEET_TENANTS}
+        counts = {dev: _fleet_counts(runs[dev]) for dev in runs}
+        checks["card_vs_cpu"] = dict(
+            counts_k1_and_storm=counts["cuda"] == counts["cpu"],
+            counters_where_streams_equal={
+                n: dataclasses.asdict(runs["cuda"]["stats"][n])
+                == dataclasses.asdict(runs["cpu"]["stats"][n])
+                for n, *_r in FLEET_TENANTS
+                if runs["cuda"]["outs"][n] == runs["cpu"]["outs"][n]})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    res = dict(card_equals_cpu={n: runs["cuda"]["outs"][n]
+                                == runs["cpu"]["outs"][n]
+                                for n, *_r in FLEET_TENANTS},
+               round_calls={d: r["round_calls"] for d, r in runs.items()},
+               counts=counts["cuda"], checks=checks, near_ties=near)
+    emit("path_parity_fleet", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype="float32", lens=FLEET_PARITY_LENS,
+         max_new=FLEET_PARITY_NEW, drop_p=FLEET_DROP_P,
+         outages=[list(w) for w in outages], tol=PARITY_TOL, **res)
+    bad = {t: {c: v for c, v in ch.items()
+               if v is not True and not (isinstance(v, dict)
+                                         and all(v.values()))}
+           for t, ch in checks.items()}
+    if any(bad.values()):
+        raise AssertionError(f"fleet parity: failed checks {bad}")
     return res
 
 
@@ -3665,9 +4418,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "cnn_path", "control"),
                     help="run only the kernel phases (a quick check of a "
                          "kernel change), only the CNN path, or only the "
-                         "build, the control loop, overload and resilient "
-                         "phases and their 3-layer card-vs-CPU cases; "
-                         "prints no result line")
+                         "build, the control loop, overload, resilient "
+                         "and fleet phases and their 3-layer card-vs-CPU "
+                         "cases; prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3692,10 +4445,12 @@ def main(argv=None) -> int:
         phase_adaptive_path(params, cfg, {"outs": []})
         phase_overload_path(params, cfg)
         phase_resilient_path(params, cfg)
+        phase_fleet_path(params, cfg)
         del params
         torch.cuda.empty_cache()
         _control_parity()
         _resilient_parity()
+        _fleet_parity()
         return 0
     kres = phase_kernels()
     sres = phase_sharded_kernels()
@@ -3723,6 +4478,7 @@ def main(argv=None) -> int:
     over_res = phase_overload_path(params, cfg)
     res_res = phase_resilient_path(
         params, cfg, fault_free={1: main_res["outs"], 4: spec_res["outs"]})
+    fleet_res = phase_fleet_path(params, cfg)
     del params
     torch.cuda.empty_cache()
     phase_path_parity()
@@ -3845,6 +4601,7 @@ def main(argv=None) -> int:
         r["adaptive_path_launches"] = adapt_res["launches"][r["name"]]
         r["overload_path_launches"] = over_res["launches"][r["name"]]
         r["resilient_path_launches"] = res_res["launches"][r["name"]]
+        r["fleet_path_launches"] = fleet_res["launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Serving engines of the port: the continuous-batching scheduler, the
 paged KV pool, the cloud-only and collaborative engines, the online
-tuning policy, and the overload and fault-injection layers.
+tuning policy, the overload and fault-injection layers, and the fleet.
 
     scheduler   slot/bucket/round continuous batching (``_SlotEngine``)
     kvcache     paged KV bookkeeping (``PageAllocator``, demand growth)
@@ -12,6 +12,10 @@ tuning policy, and the overload and fault-injection layers.
     engine      ``ServingEngine`` / ``CollaborativeServingEngine``
     resilience  ``ResilientCollaborativeEngine``: edge-only serving
                 through cloud outages and the cloud KV resync
+    tenant      the fleet's tenants, per-cut runtimes and fair admission
+    fleet       ``FleetServingEngine``: N tenant edges on one shared
+                cloud, cross-tenant batched rounds over one weight bank
+                and page pool, weighted-fair sharing
 
 ``from repro_torch.serve import X`` resolves the public names of the
 reference's ``repro.serve`` that the port has, on first use: the
@@ -23,6 +27,8 @@ import importlib
 _EXPORTS = {
     "ServingEngine": "cloud", "CollaborativeServingEngine": "engine",
     "ResilientCollaborativeEngine": "resilience",
+    "FleetServingEngine": "fleet", "TenantSpec": "tenant",
+    "FleetFairness": "policy",
     "ReliableTransport": "transport", "CloudUnreachable": "transport",
     "PageAllocator": "kvcache", "PoolExhausted": "kvcache",
     "ServeStats": "stats", "Request": "scheduler",

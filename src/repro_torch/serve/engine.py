@@ -62,7 +62,7 @@ from repro_torch.serve.overload import _OverloadMixin
 from repro_torch.serve.phases import _SplitPhases
 from repro_torch.serve.policy import (AdaptivePolicy, DeadlineAdmission,
                                       _CutBank)
-from repro_torch.serve.scheduler import _SlotEngine
+from repro_torch.serve.scheduler import _SamplingMirrors, _SlotEngine
 from repro_torch.serve.sharding import place_collab_engine, tp_size
 from repro_torch.serve.spec import _SpecDraftMixin
 from repro_torch.serve.transport import (_MSG_BYTES, _QP_BYTES, _TOK_BYTES,
@@ -74,7 +74,8 @@ __all__ = ["ServingEngine", "CollaborativeServingEngine"]
 
 
 class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
-                                 _SplitPhases, _SlotEngine):
+                                 _SplitPhases, _SamplingMirrors,
+                                 _SlotEngine):
     """Paper mode with incremental decode over split, shared-table paged
     KV caches and the online tuning loop (see the module docstring), on
     ``device`` (default ``"cuda"``), its cloud half tensor-parallel over
@@ -201,13 +202,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         self._bank = _CutBank(params, cfg, bank_cuts, deploy_qctx,
                               drafts=self._spec_max > 1)
         self._set_cut(cut_layer, count=False)
-        # per-slot sampling state (serve.sampling): host mirrors of each
-        # slot's (temperature, top_p, seed), refreshed at admission; the
-        # device copies are cached until the slot mix changes
-        self._samp_t = np.zeros((max_batch,), np.float32)
-        self._samp_p = np.ones((max_batch,), np.float32)
-        self._samp_s = np.zeros((max_batch,), np.int64)
-        self._samp_dev: Optional[Tuple[torch.Tensor, ...]] = None
+        self._init_sampling()
         # calls of the degradation and resync phases (serve.spec)
         self.phase_calls = {"edge_only": 0, "resync": 0}
 
@@ -294,36 +289,6 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
 
     def _round_headroom(self) -> int:
         return self._spec_max - 1
-
-    # -- sampling plumbing (serve.sampling) ---------------------------------
-    def _note_samplings(self, slots, samplings) -> None:
-        """Refresh the per-slot sampling mirrors at admission (a greedy
-        or ``None`` request zeroes its slot, so slot reuse never leaks a
-        previous request's temperature)."""
-        for i, s in enumerate(slots):
-            sp = None if samplings is None else samplings[i]
-            sp = sp if (sp is not None and sp.sampled) else None
-            self._samp_t[s] = sp.temperature if sp else 0.0
-            self._samp_p[s] = sp.top_p if sp else 1.0
-            self._samp_s[s] = sp.seed if sp else 0
-        self._samp_dev = None
-
-    def _samp_vecs(self) -> Tuple[torch.Tensor, ...]:
-        if self._samp_dev is None:
-            self._samp_dev = tuple(torch.as_tensor(v, device=self.device)
-                                   for v in (self._samp_t, self._samp_p,
-                                             self._samp_s))
-        return self._samp_dev
-
-    def _offsets(self) -> torch.Tensor:
-        """[max_batch] absolute output index each live slot's next round
-        starts at: its committed count, exact on the host (the scheduler
-        counts commits as rounds report them), so every sampled draw's
-        key is pinned to (seed, index, stream)."""
-        off = np.zeros((self.max_batch,), np.int64)
-        for s, (_r, c) in self._sched_active.items():
-            off[s] = c
-        return torch.as_tensor(off, device=self.device)
 
     # -- scheduler hooks ----------------------------------------------------
     def _admit(self, toks, plens, max_news, slots, cur, pos, samplings=None):

@@ -15,8 +15,10 @@ free list cannot cover raises ``PoolExhausted`` with nothing changed,
 the scheduler's cue to preempt a victim.  ``table_for`` gives the
 device table with every row outside a slot group zeroed, so the rows
 riding along in that group's phase call write into the dump page (the
-resync replay's convention, which the fleet reuses); the per-tenant
-accounting comes with the fleet (ROADMAP A13).
+resync replay's convention, which the fleet reuses).  For the fleet
+(``serve.fleet``) admission may tag slots with an owner (a tenant):
+``ensure`` growth and retirement keep ``owner_pages`` current, which
+the fleet's quotas and its over-share-first preemption read.
 """
 from __future__ import annotations
 
@@ -103,6 +105,11 @@ class _PagedPool:
         self.allocator = PageAllocator(num_pages)
         self.bt = np.zeros((max_batch, pages_per_slot), np.int32)
         self._slot_pages: Dict[int, List[int]] = {}
+        # per-owner (tenant) page accounting for the fleet's weighted-fair
+        # sharing: admission tags a slot, growth and retirement keep the
+        # count current
+        self._slot_owner: Dict[int, str] = {}
+        self._owner_pages: Dict[str, int] = {}
         self._dev: Optional[torch.Tensor] = None
         self._masked: Dict[Tuple[int, ...], torch.Tensor] = {}
 
@@ -148,13 +155,20 @@ class _PagedPool:
         return torch.tensor(rows, dtype=torch.int32, device=self.device)
 
     def admit(self, slots: Sequence[int], plens: Sequence[int],
-              max_news: Sequence[int], padded_len: int) -> torch.Tensor:
+              max_news: Sequence[int], padded_len: int,
+              owner: Optional[str] = None) -> torch.Tensor:
         """Allocate pages for a prefill group; returns its block table
-        rows, trimmed to the pages the padded prompt can touch."""
+        rows, trimmed to the pages the padded prompt can touch.
+        ``owner`` tags the slots for per-tenant accounting
+        (``owner_pages``)."""
         for s, pl_, mn in zip(slots, plens, max_news):
             pages = self.allocator.alloc(
                 self.pages_needed(pl_, mn, padded_len))
             self._slot_pages[int(s)] = pages
+            if owner is not None:
+                self._slot_owner[int(s)] = owner
+                self._owner_pages[owner] = \
+                    self._owner_pages.get(owner, 0) + len(pages)
             self.bt[s, :] = 0
             self.bt[s, :len(pages)] = pages
         self._invalidate()
@@ -185,6 +199,9 @@ class _PagedPool:
         grown = self.allocator.alloc(need - len(pages))
         self.bt[s, len(pages):need] = grown
         pages.extend(grown)
+        owner = self._slot_owner.get(s)
+        if owner is not None:
+            self._owner_pages[owner] += len(grown)
         self._invalidate()
         return True
 
@@ -192,6 +209,9 @@ class _PagedPool:
         pages = self._slot_pages.pop(int(slot), None)
         if pages is not None:
             self.allocator.free(pages)
+            owner = self._slot_owner.pop(int(slot), None)
+            if owner is not None:
+                self._owner_pages[owner] -= len(pages)
             self.bt[slot, :] = 0
             self._invalidate()
 
@@ -205,6 +225,13 @@ class _PagedPool:
         out of the denominator)."""
         cap = self.allocator.num_pages - 1
         return (cap - self.allocator.num_free) / max(cap, 1)
+
+    def owner_pages(self, owner: str) -> int:
+        """Pages currently held by ``owner``-tagged slots."""
+        return self._owner_pages.get(owner, 0)
+
+    def slot_owner(self, slot: int) -> Optional[str]:
+        return self._slot_owner.get(int(slot))
 
     def _invalidate(self) -> None:
         """The block table changed: drop the cached device tables."""

@@ -25,7 +25,9 @@ telemetry-fed model to the admit/shed decision.  The control plane is
 host Python, as in the reference: the only tensors are the bank's.  The
 devices it prices are the reference's (a TX2-class edge, a TitanXP-class
 cloud, TP-scaled on a mesh), so its decisions are the reference's.
-``FleetFairness`` comes with the fleet (ROADMAP A13).
+``FleetFairness`` is the fleet's cross-tenant sharing (``serve.fleet``):
+weighted virtual service orders admission, page quotas cap a tenant's
+claim, and preemption picks the tenant most over its fair page share.
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ from repro_torch.models import transformer as TF
 from repro_torch.serve.transport import (_MSG_BYTES, _QP_BYTES, _TOK_BYTES,
                                          LinkTelemetry)
 
-__all__ = ["Decision", "AdaptivePolicy", "DeadlineAdmission", "_CutBank",
-           "_prequantize_blocks"]
+__all__ = ["Decision", "AdaptivePolicy", "DeadlineAdmission",
+           "FleetFairness", "_CutBank", "_prequantize_blocks"]
 
 
 def _quantize_layers(leaf: torch.Tensor, deploy_qctx) -> torch.Tensor:
@@ -251,6 +253,57 @@ class AdaptivePolicy:
                 != (d.cut, d.spec_k)):
             self.history.append(d)
         return d
+
+
+class FleetFairness:
+    """Cross-tenant weighted-fair sharing for the fleet engine — the
+    overload discipline's priority/preemption rules extended to a shared
+    slot table and page pool serving many edges at once.
+
+    Each tenant carries a ``weight`` (its share of the cloud) and an
+    optional hard page ``quota``.  Every committed token charges its
+    tenant ``1 / weight`` of virtual service, and admission orders the
+    eligible requests by (priority desc, virtual service asc, FIFO), so
+    a hot tenant keeps admitting only while its weighted service stays
+    behind the others'.  Preemption inverts the ordering with pool
+    pressure first: the tenant most over its fair page share (the
+    pool's ``owner_pages``), then the lowest priority, then the most
+    remaining budget."""
+
+    def __init__(self, weights: Dict[str, float],
+                 quotas: Optional[Dict[str, Optional[int]]] = None):
+        if not weights or not all(w > 0 for w in weights.values()):
+            raise ValueError(f"tenant weights must be positive: {weights}")
+        self.weights = dict(weights)
+        self.quotas = {t: (quotas or {}).get(t) for t in weights}
+        self._wsum = sum(self.weights.values())
+        self.vservice: Dict[str, float] = {t: 0.0 for t in weights}
+
+    def charge(self, tenant: str, tokens: int) -> None:
+        """``tokens`` committed for ``tenant``: advance its virtual
+        service by the weighted amount."""
+        self.vservice[tenant] += tokens / self.weights[tenant]
+
+    def admission_key(self, req) -> Tuple:
+        """Sort key for the eligible-request queue (ascending)."""
+        return (-req.priority, self.vservice.get(req.tenant, 0.0), req._seq)
+
+    def fair_pages(self, tenant: str, usable_pages: int) -> float:
+        """``tenant``'s weighted fair share of the pool."""
+        return usable_pages * self.weights[tenant] / self._wsum
+
+    def over_quota(self, tenant: str, held: int) -> bool:
+        """Hard quota check (a ``None`` quota is uncapped)."""
+        q = self.quotas.get(tenant)
+        return q is not None and held > q
+
+    def victim_key(self, req, tenant_pages: int, usable_pages: int,
+                   remaining: int) -> Tuple:
+        """Sort key for preemption victims (ascending = preempt first):
+        most over the fair page share, then lowest priority, then most
+        remaining budget; the caller breaks ties by slot."""
+        over = tenant_pages - self.fair_pages(req.tenant, usable_pages)
+        return (-over, req.priority, -remaining)
 
 
 class DeadlineAdmission:

@@ -49,7 +49,7 @@ from repro_torch.serve.kvcache import PoolExhausted
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.stats import ServeStats
 
-__all__ = ["Request", "_bucket_len", "_SlotEngine"]
+__all__ = ["Request", "_bucket_len", "_SamplingMirrors", "_SlotEngine"]
 
 
 def _bucket_len(plen: int, max_len: int) -> int:
@@ -73,6 +73,8 @@ class Request:
     priority: int = 0             # higher admits first / preempts last
     deadline_s: Optional[float] = None   # absolute, on the simulated clock
     arrival_s: float = 0.0        # when the request becomes admissible
+    # -- multi-tenant fleet serving (serve.fleet) -------------------------
+    tenant: Optional[str] = None  # owning edge; None = single-tenant
     shed: bool = False            # refused by deadline-aware admission
     preemptions: int = 0          # times this request was suspended
     admit_s: Optional[float] = None      # first admission time
@@ -91,6 +93,50 @@ def _remove_is(lst: List, item) -> None:
         if x is item:
             del lst[i]
             return
+
+
+class _SamplingMirrors:
+    """Per-slot sampling state of an engine (``serve.sampling``): host
+    mirrors of each slot's (temperature, top_p, seed), refreshed at
+    admission, and their device copies, cached until the slot mix
+    changes.  The engine provides ``max_batch``, ``device`` and the
+    scheduler's live view ``_sched_active``."""
+
+    def _init_sampling(self) -> None:
+        self._samp_t = np.zeros((self.max_batch,), np.float32)
+        self._samp_p = np.ones((self.max_batch,), np.float32)
+        self._samp_s = np.zeros((self.max_batch,), np.int64)
+        self._samp_dev: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def _note_samplings(self, slots, samplings) -> None:
+        """Refresh the mirrors of ``slots`` at admission (a greedy or
+        ``None`` request zeroes its slot, so slot reuse never leaks a
+        previous request's temperature)."""
+        for i, s in enumerate(slots):
+            sp = None if samplings is None else samplings[i]
+            sp = sp if (sp is not None and sp.sampled) else None
+            self._samp_t[s] = sp.temperature if sp else 0.0
+            self._samp_p[s] = sp.top_p if sp else 1.0
+            self._samp_s[s] = sp.seed if sp else 0
+        self._samp_dev = None
+
+    def _samp_vecs(self) -> Tuple[torch.Tensor, ...]:
+        if self._samp_dev is None:
+            self._samp_dev = tuple(torch.as_tensor(v, device=self.device)
+                                   for v in (self._samp_t, self._samp_p,
+                                             self._samp_s))
+        return self._samp_dev
+
+    def _offsets(self) -> torch.Tensor:
+        """[max_batch] absolute output index each live slot's next round
+        starts at: its committed count, exact on the host (the scheduler
+        counts commits as rounds report them), so every sampled draw's
+        key is pinned to (seed, index, stream), whoever shares the
+        batch."""
+        off = np.zeros((self.max_batch,), np.int64)
+        for s, (_r, c) in self._sched_active.items():
+            off[s] = c
+        return torch.as_tensor(off, device=self.device)
 
 
 class _SlotEngine:

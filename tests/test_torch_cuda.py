@@ -15,7 +15,9 @@ control loop (a scripted cut switch and warm k raise) and overload
 serving (a demand-paged engine preempting under pool pressure) on the
 card against the CPU; the tensor-core kernel at the resync replay's
 shape, and the resilient engine through drops and outages on the card
-against the CPU.
+against the CPU; the split kernel at the fleet's verify shape with rows
+on the dump page, the fleet on the card against the CPU, and the INT8
+fleet's streams equal to solo engines on the card.
 
 Marked ``gpu``: each test skips where there is no CUDA device.  This
 file imports no JAX, so it runs on a machine with the card alone:
@@ -1108,3 +1110,68 @@ def test_resilient_engine_on_card_matches_cpu(cuda):
     assert all(res["counters_card_equal_cpu"].values())
     for tag in ("k1", "k4", "k1_sampled"):
         assert res["stats"][f"{tag}_cuda"]["resyncs"] >= 1
+
+
+@pytest.mark.gpu
+def test_split_kernel_with_rows_on_the_dump_page(cuda):
+    """The fleet's verify shape at deepseek-7b's widths: 8 rows of 4
+    query positions (32 query and kv heads, hd 128, int8 pages), half of
+    them riding along on zeroed block-table rows (the dump page, as
+    ``_PagedPool.table_for`` gives them) — the split kernel, against the
+    plain version within ``KERNEL_TOL`` of max |plain|, every value
+    finite."""
+    lens = [164, 100, 131, 36, 150, 140, 60, 170]
+    args = list(_case(12, dtype=torch.int8, group=1, s=4, b=8, n_kv=32,
+                      per=12, lens=lens))
+    args[3][1::2] = 0
+    launches, tc_before = PA.paged_flash_mq.launches, \
+        PA.paged_flash_mq.tc_launches
+    out = PA.paged_multiquery_attention(*args)
+    assert PA.paged_flash_mq.launches == launches + 1
+    assert PA.paged_flash_mq.tc_launches == tc_before
+    want = PA.paged_attention_mq_ref(*args)
+    torch.cuda.synchronize()
+    tol = _chip_smoke().KERNEL_TOL * max(float(want.abs().max()), 1.0)
+    assert float((out - want).abs().max()) <= tol
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_fleet_on_card_matches_cpu(cuda):
+    """``chip_smoke._fleet_parity`` (the check the script's
+    ``path_parity_fleet`` runs) on a 3-layer SMOKE model, lossless: four
+    tenants at two cuts and two draft lengths, one through drops and an
+    outage, each fleet stream equal to its solo engine's at the fleet's
+    batch shape on each device, every cache finite; here also every
+    stream and counter of the card equal to the CPU's."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, n_layers=3, dtype=torch.float32)
+    res = cs._fleet_parity(cfg, outages=cs.FLEET_PARITY_OUTAGES_SMOKE)
+    assert all(res["card_equals_cpu"].values())
+    assert res["checks"]["card_vs_cpu"]["counts_k1_and_storm"]
+    assert len(res["checks"]["card_vs_cpu"][
+        "counters_where_streams_equal"]) == 4
+    assert res["round_calls"]["cuda"] == res["round_calls"]["cpu"]
+
+
+@pytest.mark.gpu
+def test_int8_fleet_on_card_streams_equal_solo(cuda):
+    """The per-row-ranges invariant on the card: the INT8 default fleet
+    (per-row Eq.(1) ranges, per-slot KV scales) on a 3-layer SMOKE
+    model, each tenant's stream equal to its solo engine's at the
+    fleet's batch shape, every budget filled, every page back, every
+    cache finite."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, n_layers=3, dtype=torch.float32)
+    params = TT.init_lm(cfg, torch.Generator(device="cuda").manual_seed(5),
+                        device="cuda")
+    prompts = cs._fleet_prompts(cs.FLEET_TENANTS, cfg.vocab,
+                                lens=cs.FLEET_PARITY_LENS)
+    run, solo = cs._fleet_parity_runs(params, cfg, "cuda", prompts,
+                                      cs.FLEET_PARITY_OUTAGES_SMOKE,
+                                      conf={})
+    assert all(run["outs"][n] == solo[n] for n in solo)
+    assert all(len(o) == cs.FLEET_PARITY_NEW
+               for v in run["outs"].values() for o in v)
+    assert run["pages_back"] and run["finite"]
+    assert sum(run["faults"][cs.FLEET_STORM].values()) > 0

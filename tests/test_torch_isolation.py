@@ -35,6 +35,7 @@ for n in names:
 assert {"repro_torch.kernels.ops", "repro_torch.kernels.ref",
         "repro_torch.kernels.int8_matmul",
         "repro_torch.serve.spec", "repro_torch.serve.resilience",
+        "repro_torch.serve.fleet", "repro_torch.serve.tenant",
         "repro_torch.launch.mesh",
         "repro_torch.launch.shardings",
         "repro_torch.serve.sharding", "repro_torch.models.resnet",
