@@ -135,6 +135,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     the solo engines run one after another, peak memory,
                     where the tenants' own solo streams (at 8 and 2
                     slots) leave the fleet's.
+10d. ``dense_path`` — the dense KV caches on the same weights at full
+                    width and depth, cut 14, the main path's traffic:
+                    (a) the collaborative engine with dense caches on
+                    both sides (INT8 edge, fp cloud) timed in turns with
+                    the paged engine (wire bytes, prefill calls and
+                    decode steps equal, ``edge_cache_bytes`` by formula:
+                    asserted), (b) at ``spec_k=4``, (c) the cloud-only
+                    engine dense and paged in turns, (d) the seed
+                    recompute path (wire bytes by formula; at a 16-bit
+                    lattice each first token held to the dense
+                    incremental engine's by prefill logits), (e) the
+                    paper's ``CollaborativeEngine`` on the LM's block
+                    segments at ``blk14/ffn``, batch 1 and 4, (f) card
+                    against CPU at 3 layers (``path_parity_dense``:
+                    dense INT8 attention at a scalar and a per-row
+                    index, ``_sdpa``'s ``q_chunk``, the dense lossless
+                    and seed streams, the dense INT8 decisions).  Every
+                    kernel's launches over (a)-(e) read and asserted 0.
 11. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
@@ -187,8 +205,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 Then a ``{"kernels": [...]}`` summary line (each row with its
 ``cnn_path_launches``, ``adaptive_path_launches``,
-``overload_path_launches``, ``resilient_path_launches`` and
-``fleet_path_launches``), the
+``overload_path_launches``, ``resilient_path_launches``,
+``fleet_path_launches`` and ``dense_path_launches``), the
 ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
@@ -1436,7 +1454,8 @@ def phase_main_path(params, cfg) -> dict:
                                      device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    cloud = ServingEngine(params, cfg, max_len=max_len, device="cuda")
+    cloud = ServingEngine(params, cfg, max_len=max_len, paged=True,
+                          device="cuda")
     prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
     for e in (eng, cloud):
         e.generate(prompts[:1], max_new_tokens=2)      # warm-up: cuBLAS etc.
@@ -3459,6 +3478,480 @@ def phase_fleet_path(params, cfg, *, device="cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10d: the dense KV caches, the seed recompute path, the LM's segments
+# ---------------------------------------------------------------------------
+
+
+DENSE_REPEATS = 3          # timed runs of each engine, in turns
+SEED_PROMPTS, SEED_NEW = 4, 8
+# the seed path's first token against the incremental engine's (a 16-bit
+# lattice on both, fp dense caches): their prefill logits may differ by
+# the rounding of GEMMs of other shapes, the bound ``_index0`` puts on
+# two engines' rows
+SEED_FIRST_TOL = 0.25
+
+
+def _add_launches(acc: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def _dense_edge_bytes(cfg, eng) -> int:
+    """A dense INT8 edge cache's bytes by formula: ``k`` and ``v``, one
+    byte an element over [n_edge, slots, max_len, n_kv, hd], and their
+    f32 scales [n_edge, n_kv]."""
+    elems = eng.n_edge * eng.max_batch * eng.max_len * cfg.n_kv * cfg.hd
+    return 2 * elems + 2 * eng.n_edge * cfg.n_kv * 4
+
+
+def _seed_bytes(n: int, plen: int, new: int, d_model: int,
+                itemsize: int) -> int:
+    """The seed path's raw-total wire bytes: at step i the whole
+    [n, plen + i, d_model] blob, one Eq.(1) frame and one header."""
+    from repro_torch.serve.transport import _MSG_BYTES, _QP_BYTES
+    return sum(n * (plen + i) * d_model * itemsize + _QP_BYTES + _MSG_BYTES
+               for i in range(new))
+
+
+def _runs_summary(rs) -> dict:
+    walls = [r["wall"] for r in rs]
+    n_tok = sum(len(o) for o in rs[0]["out"])
+    return dict(tokens=n_tok, wall_s_reps=walls,
+                tokens_per_s_reps=[n_tok / w for w in walls],
+                tokens_per_s=n_tok / statistics.median(walls),
+                streams_repeat_identical=all(r["out"] == rs[0]["out"]
+                                             for r in rs))
+
+
+def _agreement(a, b) -> dict:
+    same = sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+    return dict(first_token_equal=[p[0] == q[0] for p, q in zip(a, b)],
+                token_agreement=same / sum(len(p) for p in a))
+
+
+def phase_dense_path(params, cfg, *, device="cuda", parity=True) -> dict:
+    """The dense KV caches at deepseek-7b's full width and depth (bf16,
+    the main path's weights), cut 14, the main path's traffic (8
+    requests x 32 new tokens after 128-token prompts, 4 slots, 250 KB/s
+    at 20 ms):
+
+    (a) ``CollaborativeServingEngine(edge_paged=False,
+        cloud_paged=False)`` — the INT8 dense edge (fixed scales), the
+        fp dense cloud — timed in turns with the paged main-path engine:
+        wire bytes, prefill calls and decode steps equal to the paged
+        engine's (asserted), ``edge_cache_bytes()`` equal to the dense
+        layout's formula (asserted), peak memory;
+    (b) the dense engine at ``spec_k=4``: rounds, acceptance;
+    (c) the cloud-only ``ServingEngine`` dense (the reference's default)
+        in turns with ``paged=True``;
+    (d) the seed path, ``generate_recompute`` on 4 prompts x 8 new
+        tokens at ``a_bits`` 8 and 16: wall time, tokens/s, wire bytes
+        equal to the raw-total formula (asserted); at 16 bits each first
+        token held to the dense incremental engine's (fp dense caches)
+        by prefill logits within ``SEED_FIRST_TOL`` (``_index0``'s
+        rule);
+    (e) the paper's ``CollaborativeEngine`` on ``make_segments(seq=128)``
+        cut at ``blk14/ffn``, batch 1 and 4: edge and cloud ms, blob
+        bytes (asserted), relative error against ``full_apply``
+        (reported);
+    (f) card against CPU at 3 layers (``_dense_parity``).
+
+    Every kernel's launches over the dense runs (a)-(e) are read from
+    the counters, set to 0 just before each: all must be 0 (no dense
+    path reaches a paged kernel).  ``device="cpu"`` with
+    ``parity=False`` rehearses (a)-(e) on a small model on the CPU."""
+    from repro_torch.core.collab import CollaborativeEngine
+    from repro_torch.core.costmodel import QP_BYTES, Channel
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import (CollaborativeServingEngine,
+                                          ServingEngine)
+
+    t_phase = time.perf_counter()
+    n_req, plen, max_new, cut = 8, 128, 32, 14
+    max_len = plen + max_new + 24
+    channel = Channel.from_kbps(250.0, rtt_ms=20.0)
+    prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
+    dense_kw = dict(edge_paged=False, cloud_paged=False)
+    launches = {}
+
+    def engine(**kw):
+        return CollaborativeServingEngine(params, cfg, cut_layer=cut,
+                                          channel=channel, max_len=max_len,
+                                          device=device, **kw)
+    on_card = torch.device(device).type == "cuda"
+
+    def counted(e, fn, dense=True):
+        r = _counted(e, fn)
+        if dense:
+            _add_launches(launches, r["by_row"])
+        return r
+
+    def well_formed(outs, n_new, what):
+        if not all(len(o) == n_new and all(0 <= t < cfg.vocab for t in o)
+                   for o in outs):
+            raise AssertionError(f"dense path {what}: malformed streams")
+
+    # (a) dense against paged, in turns
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    paged, dense = engine(), engine(**dense_kw)
+    for e in (paged, dense):
+        e.generate(prompts[:1], max_new_tokens=2)      # warm-up
+    runs = {"paged": [], "dense": []}
+    for _ in range(DENSE_REPEATS):
+        for tag, e in (("paged", paged), ("dense", dense)):
+            runs[tag].append(counted(
+                e, lambda e=e: e.generate(prompts, max_new_tokens=max_new),
+                dense=tag == "dense"))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    pst, dst = runs["paged"][0]["stats"], runs["dense"][0]["stats"]
+    for r in runs["dense"] + runs["paged"]:
+        well_formed(r["out"], max_new, "(a)")
+    for k in ("transmitted_bytes", "prefill_bytes", "prefill_calls",
+              "decode_steps"):
+        if getattr(pst, k) != getattr(dst, k):
+            raise AssertionError(f"dense path (a): {k} {getattr(dst, k)} "
+                                 f"!= the paged engine's {getattr(pst, k)}")
+    want_b1 = cfg.n_layers * (pst.prefill_calls + pst.decode_steps)
+    if on_card and runs["paged"][0]["launches"] != want_b1:
+        raise AssertionError(f"dense path (a): the paged engine launched "
+                             f"B1 {runs['paged'][0]['launches']} times, "
+                             f"expected {want_b1}")
+    edge_bytes = dense.edge_cache_bytes()
+    if edge_bytes != _dense_edge_bytes(cfg, dense):
+        raise AssertionError(f"dense path (a): edge_cache_bytes "
+                             f"{edge_bytes} != {_dense_edge_bytes(cfg, dense)}")
+    res = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               dtype=str(cfg.dtype), cut=cut, requests=n_req, slots=4,
+               prompt_len=plen, max_new=max_new, max_len=max_len,
+               reps=DENSE_REPEATS,
+               dense=dict(**_runs_summary(runs["dense"]),
+                          prefill_calls=dst.prefill_calls,
+                          decode_steps=dst.decode_steps,
+                          transmitted_bytes=dst.transmitted_bytes,
+                          prefill_bytes=dst.prefill_bytes,
+                          edge_cache_bytes=edge_bytes,
+                          edge_cache_dtype=str(dense._edge_cache["k"].dtype),
+                          cloud_cache_dtype=str(
+                              dense._cloud_cache["k"].dtype)),
+               paged=dict(**_runs_summary(runs["paged"]),
+                          transmitted_bytes=pst.transmitted_bytes,
+                          edge_cache_bytes=paged.edge_cache_bytes(),
+                          b1_launches=runs["paged"][0]["launches"]),
+               dense_vs_paged=_agreement(runs["dense"][0]["out"],
+                                         runs["paged"][0]["out"]),
+               peak_mem_gb=peak)
+    del paged, dense, runs
+    _free(device)
+
+    # (b) the dense engine's speculative rounds
+    spec = engine(spec_k=4, **dense_kw)
+    spec.generate(prompts[:1], max_new_tokens=2)
+    r = counted(spec, lambda: spec.generate(prompts, max_new_tokens=max_new))
+    well_formed(r["out"], max_new, "(b)")
+    st = r["stats"]
+    n_tok = sum(len(o) for o in r["out"])
+    res["spec_k4"] = dict(tokens=n_tok, wall_s=r["wall"],
+                          tokens_per_s=n_tok / r["wall"],
+                          rounds=st.spec_rounds,
+                          acceptance=st.acceptance_rate(),
+                          drafted_tokens=st.drafted_tokens,
+                          draft_hits=st.draft_hits,
+                          transmitted_bytes=st.transmitted_bytes)
+    del spec, r
+    _free(device)
+
+    # (c) cloud-only: dense (the reference's default) and paged, in turns
+    clouds = {"dense": ServingEngine(params, cfg, max_len=max_len,
+                                     device=device),
+              "paged": ServingEngine(params, cfg, max_len=max_len,
+                                     paged=True, device=device)}
+    for e in clouds.values():
+        e.generate(prompts[:1], max_new_tokens=2)
+    cruns = {"dense": [], "paged": []}
+    for _ in range(DENSE_REPEATS):
+        for tag, e in clouds.items():
+            cruns[tag].append(counted(
+                e, lambda e=e: e.generate(prompts, max_new_tokens=max_new),
+                dense=tag == "dense"))
+    for tag in cruns:
+        well_formed(cruns[tag][0]["out"], max_new, "(c)")
+    if (cruns["dense"][0]["stats"].decode_steps
+            != cruns["paged"][0]["stats"].decode_steps):
+        raise AssertionError("dense path (c): decode steps differ")
+    res["cloud_only"] = dict(
+        dense=dict(**_runs_summary(cruns["dense"]),
+                   cache_bytes=clouds["dense"].cache_bytes()),
+        paged=_runs_summary(cruns["paged"]),
+        dense_vs_paged=_agreement(cruns["dense"][0]["out"],
+                                  cruns["paged"][0]["out"]))
+    del clouds, cruns
+    _free(device)
+
+    # (d) the seed recompute path
+    sp = prompts[:SEED_PROMPTS]
+    seed = {}
+    for bits, item in ((8, 1), (16, 2)):
+        e = engine(a_bits=bits, **dense_kw)
+        first = None
+        if bits == 16:      # the first step's logits, outside the count
+            first = e.forward(np.stack(sp))[:, -1].float()
+        r = counted(e, lambda e=e: e.generate_recompute(
+            sp, max_new_tokens=SEED_NEW))
+        well_formed(r["out"], SEED_NEW, "(d)")
+        want = _seed_bytes(len(sp), plen, SEED_NEW, cfg.d_model, item)
+        if r["stats"].transmitted_bytes != want or \
+                r["stats"].decode_steps != SEED_NEW:
+            raise AssertionError(
+                f"dense path (d) at a_bits={bits}: "
+                f"{r['stats'].transmitted_bytes} wire bytes over "
+                f"{r['stats'].decode_steps} steps, expected {want} over "
+                f"{SEED_NEW}")
+        n_tok = len(sp) * SEED_NEW
+        seed[bits] = dict(tokens=n_tok, wall_s=r["wall"],
+                          tokens_per_s=n_tok / r["wall"],
+                          transmitted_bytes=r["stats"].transmitted_bytes,
+                          channel_s=r["stats"].channel_latency_s,
+                          out=r["out"], first=first)
+        del e, r
+        _free(device)
+    inc = engine(a_bits=16, edge_int8=False, cloud_int8=False, **dense_kw)
+    with _PrefillGroups(inc) as pg:
+        r = counted(inc, lambda: inc.generate(sp, max_new_tokens=SEED_NEW))
+    rows = []
+    for u, (a, b) in enumerate(zip(seed[16]["out"], r["out"])):
+        la, lb = seed[16]["first"][u].double().cpu(), pg.logits[u].double()\
+            .cpu()
+        ta, tb = a[0], b[0]
+        if ta != int(torch.argmax(la)):
+            raise AssertionError(f"dense path (d): request {u}'s first "
+                                 f"recompute token {ta} is not the argmax "
+                                 f"of the first step's logits")
+        diff = max(abs(float(la[t] - lb[t])) for t in (ta, tb))
+        diff = max(diff, abs(float(la.max() - lb.max())))
+        row = dict(request=u, tokens=[ta, tb], logit_diff=diff,
+                   row_max_diff=float((la - lb).abs().max()))
+        if diff > SEED_FIRST_TOL:
+            raise AssertionError(f"dense path (d): request {u}'s first "
+                                 f"token differs beyond a near-tie: {row}")
+        rows.append(row)
+    res["seed_path"] = dict(
+        prompts=len(sp), prompt_len=plen, max_new=SEED_NEW,
+        **{f"a_bits{b}": {k: v for k, v in d.items()
+                          if k not in ("out", "first")}
+           for b, d in seed.items()},
+        recompute_vs_incremental=_agreement(seed[16]["out"], r["out"]),
+        first_token_rows=rows, first_token_tol=SEED_FIRST_TOL)
+    del inc, r, seed, pg
+    _free(device)
+
+    # (e) the paper's engine on the LM's block segments
+    model = TF.make_segments(params, cfg, seq=plen)
+    model.verify_alignment()
+    ceng = CollaborativeEngine(model, f"blk{cut}/ffn", channel=channel,
+                               device=device)
+    res["collab_engine"] = {"cut": f"blk{cut}/ffn",
+                            "edge_download_bytes": ceng.edge_download_bytes}
+    for b in (1, 4):
+        x = torch.tensor(np.stack(prompts[:b]), device=device)
+        ceng.infer(x)                                   # warm-up
+        _reset_launch_counts()
+        recs = [ceng.infer(x) for _ in range(DENSE_REPEATS)]
+        _sync(device)
+        _add_launches(launches, _launch_counts())
+        y, rec = recs[-1]
+        truth = model.full_apply(x)
+        want = b * plen * cfg.d_model + int(QP_BYTES)
+        if rec.blob_bytes != want or tuple(y.shape) != (b, plen, cfg.vocab) \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"dense path (e) at batch {b}: blob "
+                                 f"{rec.blob_bytes} B (expected {want}), "
+                                 f"output {tuple(y.shape)}")
+        rel = float(torch.linalg.norm((y - truth).float())
+                    / torch.linalg.norm(truth.float()))
+        res["collab_engine"][f"batch{b}"] = dict(
+            edge_ms=statistics.median(r.edge_wall_s for _, r in recs) * 1e3,
+            cloud_ms=statistics.median(r.cloud_wall_s for _, r in recs)
+            * 1e3,
+            blob_bytes=rec.blob_bytes,
+            simulated_s=rec.simulated_latency_s, rel_err_vs_full=rel)
+        del y, truth, recs
+    del ceng, model
+    _free(device)
+
+    if any(launches.values()):
+        raise AssertionError(f"dense path: a dense run launched a paged or "
+                             f"INT8 kernel: {launches}")
+    res["launches"] = launches
+    res["phase_s_before_parity"] = time.perf_counter() - t_phase
+    emit("dense_path", **res)
+    res["parity"] = _dense_parity() if parity else None
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("dense_path_done", phase_s=res["phase_s"])
+    return res
+
+
+def _teacher_forced_dense(params, cfg, tokens, device):
+    """Last-position logits of ``tokens`` through the cacheless
+    ``forward`` (no paged kernel)."""
+    from repro_torch.models import transformer as TF
+    toks = torch.tensor(np.asarray(tokens, np.int32)[None], device=device)
+    return TF.forward(params, toks, cfg)[0][0, -1].double().cpu()
+
+
+def _dense_parity(cfg=None, *, card="cuda") -> dict:
+    """The dense caches and the seed path on the card against the CPU, f32
+    (the CPU port is held to the JAX engines by
+    ``tests/test_torch_dense_model.py``, ``test_torch_dense_serve.py``
+    and ``test_torch_seedpath.py``); ``cfg`` defaults to deepseek-7b at
+    full width and 3 layers (the ``gpu`` tests pass a smaller one):
+
+    * one attention layer over a dense INT8 cache at a scalar index (a
+      16-token prefill) and a per-row one (4 tokens, one row partly and
+      one wholly past the cache's end): outputs within ``PARITY_TOL`` of
+      the CPU's (relative to their largest), the written lattices at most
+      one step apart and equal in 99.9 % of elements, untouched
+      positions unchanged; ``_sdpa`` with ``q_chunk`` equal to the whole
+      block's within 1e-5;
+    * the dense lossless engine (``a_bits=None``, fp dense caches on both
+      sides) and ``generate_recompute`` lossless: each card stream equal
+      to the CPU's, or a near-tie at the first divergence
+      (``_near_ties`` with the cacheless forward's logits); the seed
+      path's wire bytes equal;
+    * the dense INT8 default (INT8 dense edge, fp dense cloud): the
+      card's decisions held to the CPU's up to the first tie
+      (``_int8_divergence``).
+
+    ``card="cpu"`` rehearses the checks with the CPU in the card's
+    place."""
+    import dataclasses
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as ML
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import CollaborativeServingEngine
+
+    t0 = time.perf_counter()
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("deepseek-7b").full, n_layers=3,
+                                  dtype=torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p_gpu = init_lm(cfg, torch.Generator(device=card).manual_seed(3),
+                        device=card)
+        p_cpu = tree_map(lambda t: t.cpu(), p_gpu)
+        attn = {d: tree_map(lambda t: t[0], p["blocks"]["attn"])
+                for d, p in (("card", p_gpu), ("cpu", p_cpu))}
+        g = torch.Generator().manual_seed(4)
+        t_len = 24
+        rope = ML.rope_table(t_len, cfg.hd)
+        scales = (0.04 + 0.02 * torch.rand(cfg.n_kv, generator=g),
+                  0.04 + 0.02 * torch.rand(cfg.n_kv, generator=g))
+        cache0 = {k: torch.randint(-127, 128, (3, t_len, cfg.n_kv, cfg.hd),
+                                   generator=g, dtype=torch.int8)
+                  for k in ("k", "v")}
+        attn_rows = {}
+        # each case: its new tokens, index, and the positions it writes
+        for tag, s, idx, written in (
+                ("scalar", 16, torch.tensor(4), [(r, 4, 20) for r in
+                                                  range(3)]),
+                ("vector", 4, torch.tensor([3, t_len - 2, t_len + 1]),
+                 [(0, 3, 7), (1, t_len - 2, t_len)])):
+            x = torch.randn(3, s, cfg.d_model, generator=g)
+            out, caches = {}, {}
+            for tag_d, dev in (("card", card), ("cpu", "cpu")):
+                c = {k: v.to(dev) for k, v in cache0.items()}
+                out[tag_d], _ = ML.attention(
+                    attn[tag_d], x.to(dev), n_heads=cfg.n_heads,
+                    n_kv=cfg.n_kv, rope=tuple(t.to(dev) for t in rope),
+                    kv_cache=c, cache_index=idx.to(dev),
+                    kv_scales=tuple(t.to(dev) for t in scales))
+                caches[tag_d] = {k: v.cpu() for k, v in c.items()}
+            err = float((out["card"].cpu() - out["cpu"]).abs().max())
+            top = float(out["cpu"].abs().max())
+            steps = [torch.cat([(caches["card"][k][r, a:b].int()
+                                 - caches["cpu"][k][r, a:b].int()).abs()
+                                .flatten() for r, a, b in written])
+                     for k in ("k", "v")]
+            same = min(float((d == 0).float().mean()) for d in steps)
+            if err > PARITY_TOL * max(top, 1.0) or \
+                    max(int(d.max()) for d in steps) > 1 or same < 0.999:
+                raise AssertionError(f"dense INT8 attention ({tag}) card "
+                                     f"vs CPU: err {err}, lattice {same}")
+            if tag == "vector":     # untouched positions keep their bytes
+                for k in ("k", "v"):
+                    c = caches["card"][k]
+                    if not (torch.equal(c[0, :3], cache0[k][0, :3])
+                            and torch.equal(c[0, 7:], cache0[k][0, 7:])
+                            and torch.equal(c[1, :t_len - 2],
+                                            cache0[k][1, :t_len - 2])
+                            and torch.equal(c[2], cache0[k][2])):
+                        raise AssertionError("dense INT8 write past the "
+                                             "cache's end changed a "
+                                             "position")
+            attn_rows[tag] = dict(max_abs_err=err, max_abs=top,
+                                  lattice_equal_share=same)
+        q = torch.randn(2, 64, cfg.n_heads, cfg.hd, generator=g)
+        k = torch.randn(2, 80, cfg.n_heads, cfg.hd, generator=g)
+        v = torch.randn(2, 80, cfg.n_heads, cfg.hd, generator=g)
+        qd, kd, vd = (t.to(card) for t in (q, k, v))
+        whole = ML._sdpa(qd, kd, vd, causal=True, q_offset=16)
+        chunked = ML._sdpa(qd, kd, vd, causal=True, q_offset=16, q_chunk=16)
+        cpu = ML._sdpa(q, k, v, causal=True, q_offset=16, q_chunk=16)
+        qerr = max(float((chunked - whole).abs().max()),
+                   float((chunked.cpu() - cpu).abs().max()))
+        if qerr > 1e-5:
+            raise AssertionError(f"_sdpa q_chunk on the card: {qerr}")
+
+        prompts = [np.random.RandomState(60 + i).randint(0, cfg.vocab, n)
+                   .astype(np.int32) for i, n in enumerate((20, 17, 9))]
+        seed_prompts = [p[:9] for p in prompts]
+        base = dict(cut_layer=0, max_len=48, max_batch=2,
+                    edge_paged=False, cloud_paged=False)
+        lossless = dict(a_bits=None, edge_int8=False, cloud_int8=False)
+        runs, logs, wire = {}, {}, {}
+        p_dev = {"card": card, "cpu": "cpu"}
+        for dev, p in (("card", p_gpu), ("cpu", p_cpu)):
+            eng = CollaborativeServingEngine(p, cfg, device=p_dev[dev],
+                                             **base, **lossless)
+            runs["lossless", dev] = eng.generate(prompts, max_new_tokens=6)
+            eng.stats = type(eng.stats)()
+            runs["seed", dev] = eng.generate_recompute(seed_prompts,
+                                                       max_new_tokens=4)
+            wire[dev] = eng.stats.transmitted_bytes
+            del eng
+            eng = CollaborativeServingEngine(p, cfg, device=p_dev[dev],
+                                             **base)
+            with _Decisions() as d:
+                runs["int8", dev] = eng.generate(prompts, max_new_tokens=6)
+            logs[dev] = d.log
+            del eng
+        if wire["card"] != wire["cpu"]:
+            raise AssertionError(f"seed path wire bytes card {wire['card']}"
+                                 f" vs CPU {wire['cpu']}")
+        checked = {
+            "lossless": _near_ties(runs["lossless", "card"],
+                                   runs["lossless", "cpu"], prompts, p_gpu,
+                                   p_cpu, cfg, forced=_teacher_forced_dense),
+            "seed": _near_ties(runs["seed", "card"], runs["seed", "cpu"],
+                               seed_prompts, p_gpu, p_cpu, cfg,
+                               forced=_teacher_forced_dense)}
+        div = _int8_divergence(logs["card"], logs["cpu"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    res = dict(attention=attn_rows, q_chunk_err=qerr, near_ties=checked,
+               int8_divergence=div, seed_wire_bytes=wire["cpu"],
+               card_equals_cpu={t: runs[t, "card"] == runs[t, "cpu"]
+                                for t in ("lossless", "seed", "int8")})
+    emit("path_parity_dense", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype="float32", tol=PARITY_TOL,
+         int8_noise_tol=INT8_NOISE_TOL, seconds=time.perf_counter() - t0,
+         **res)
+    return res
+
+
 def _rehearsal_model(n_layers: int):
     """deepseek-7b's width (d_model 4096: the same wire bytes) at
     ``n_layers``, with a small vocabulary and FFN the schedule does not
@@ -3541,18 +4034,21 @@ def _teacher_forced(params, cfg, tokens, device):
     return logits[0].double().cpu()
 
 
-def _near_ties(card, cpu, prompts, p_gpu, p_cpu, cfg) -> list:
+def _near_ties(card, cpu, prompts, p_gpu, p_cpu, cfg, *,
+               forced=None) -> list:
     """Hold the card's greedy streams to the CPU's: equal, or else at the
-    first divergence both devices' teacher-forced f32 logits agree
-    within ``PARITY_TOL`` and the CPU's top two lie within twice it."""
+    first divergence both devices' teacher-forced f32 logits (by
+    ``forced``, default ``_teacher_forced``) agree within ``PARITY_TOL``
+    and the CPU's top two lie within twice it."""
+    forced = forced or _teacher_forced
     checked = []
     for pr, a, b in zip(prompts, card, cpu):
         if a == b:
             continue
         i = next(j for j in range(len(a)) if a[j] != b[j])
         ctx = list(pr) + b[:i]
-        lg = _teacher_forced(p_gpu, cfg, ctx, "cuda")
-        lc = _teacher_forced(p_cpu, cfg, ctx, "cpu")
+        lg = forced(p_gpu, cfg, ctx, "cuda")
+        lc = forced(p_cpu, cfg, ctx, "cpu")
         diff = float((lg - lc).abs().max())
         top2 = torch.topk(lc, 2).values
         gap = float(top2[0] - top2[1])
@@ -4415,12 +4911,14 @@ def phase_cnn_path() -> dict:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "cnn_path", "control"),
+    ap.add_argument("--only", choices=("kernels", "cnn_path", "control",
+                                       "dense"),
                     help="run only the kernel phases (a quick check of a "
-                         "kernel change), only the CNN path, or only the "
+                         "kernel change), only the CNN path, only the "
                          "build, the control loop, overload, resilient "
                          "and fleet phases and their 3-layer card-vs-CPU "
-                         "cases; prints no result line")
+                         "cases, or only the build and the dense path; "
+                         "prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4436,6 +4934,14 @@ def main(argv=None) -> int:
         phase_cnn_path()
         return 0
     phase_build()
+    if args.only == "dense":
+        from repro_torch.configs import get_arch
+        from repro_torch.models.transformer import init_lm
+        cfg = get_arch("deepseek-7b").full
+        params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        phase_dense_path(params, cfg)
+        return 0
     if args.only == "control":
         from repro_torch.configs import get_arch
         from repro_torch.models.transformer import init_lm
@@ -4479,6 +4985,7 @@ def main(argv=None) -> int:
     res_res = phase_resilient_path(
         params, cfg, fault_free={1: main_res["outs"], 4: spec_res["outs"]})
     fleet_res = phase_fleet_path(params, cfg)
+    dense_res = phase_dense_path(params, cfg)
     del params
     torch.cuda.empty_cache()
     phase_path_parity()
@@ -4602,6 +5109,8 @@ def main(argv=None) -> int:
         r["overload_path_launches"] = over_res["launches"][r["name"]]
         r["resilient_path_launches"] = res_res["launches"][r["name"]]
         r["fleet_path_launches"] = fleet_res["launches"][r["name"]]
+        # read from the counters; phase_dense_path failed if any was not 0
+        r["dense_path_launches"] = dense_res["launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         --collaborative --cut auto --bandwidth 250 --spec-k auto --adaptive
 
-Cloud-only mode runs the batched engine over a paged fp KV cache (the
-port's stand-in for the reference's dense cache, which the JAX suite
-shows it equals); ``--collaborative`` splits the stack at the
+Cloud-only mode runs the batched engine over a dense fp KV cache, as
+the reference's launcher does; ``--collaborative`` splits the stack at the
 (auto-tuned or given) block and runs the paper's INT8-edge / fp-cloud
 pipeline over a simulated wireless channel; ``--spec-k`` turns its
 decode into speculative draft/verify rounds (an int, or ``auto`` for
@@ -113,12 +112,13 @@ def main(argv=None):
             raise SystemExit("--temperature>0 needs --collaborative: the "
                              "rejection-sampling verify lives in the "
                              "collaborative engine")
+        # the reference CLI's engine: one dense fp KV cache
         eng = ServingEngine(params, cfg, max_batch=4, max_len=max_len,
                             device=dev)
         t0 = time.perf_counter()
         outs = eng.generate(prompts, max_new_tokens=args.max_new)
         dt = time.perf_counter() - t0
-        print(f"cloud-only (paged fp KV): {args.requests} reqs x "
+        print(f"cloud-only (dense fp KV): {args.requests} reqs x "
               f"{args.max_new} tokens in {dt:.2f}s "
               f"({eng.stats.decode_steps} decode steps)")
         print("first output:", outs[0])

@@ -20,9 +20,9 @@ only, ``full_f32``); the LM's ``dense`` and ``_sdpa`` leave the flags
 alone, so the vision models call them inside ``full_f32``.
 ``groupnorm`` and ``layernorm`` write out the reference's arithmetic
 (biased variance, moments of a bf16 tensor taken in f32 as ``jnp.mean``
-and ``jnp.var`` take them).  ``attention`` has the paged KV cache form
-of the LM and the no-cache form of ViT; the dense caches and MoE come
-with later slices.
+and ``jnp.var`` take them).  ``attention`` has the LM's paged and dense
+KV cache forms and the no-cache form of ViT and of the LM's forward;
+MoE comes with a later slice.
 
 Tensor parallelism: ``attention`` and ``swiglu`` take either one
 parameter dict or a list with one per tensor-parallel shard
@@ -255,7 +255,7 @@ def dense(p: Params, x: torch.Tensor, *, qctx: Optional[QuantCtx] = None,
     """``x @ w`` in the promoted dtype of the two, plus ``b`` where the
     layer has one and then ``act``, on the edge's lattice when ``qctx``
     is given (activation ``{name}/in``, weight ``{name}/w``; a dynamic
-    context keys nothing, so the LM's calls build no name)."""
+    context keys nothing)."""
     w = p["w"]
     if qctx is not None:
         if qctx.mode == "dynamic":
@@ -423,15 +423,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def swiglu(p: Sharded, x: torch.Tensor, *,
-           qctx: Optional[QuantCtx] = None) -> torch.Tensor:
-    """SwiGLU FFN; with a list of shards, each holds a slice of the
-    ``wi``/``wg`` columns and the matching ``wo`` rows."""
+           qctx: Optional[QuantCtx] = None, name: str = "mlp"
+           ) -> torch.Tensor:
+    """SwiGLU FFN (projections named ``{name}/wi|wg|wo``); with a list of
+    shards, each holds a slice of the ``wi``/``wg`` columns and the
+    matching ``wo`` rows."""
     parts = []
     for sp in _shard_inputs(p, qctx):
         xs = x.to(sp["wi"]["w"].device)
-        h = dense(sp["wi"], xs, qctx=qctx)
-        g = F.silu(dense(sp["wg"], xs, qctx=qctx))
-        parts.append(dense(sp["wo"], h * g, qctx=qctx))
+        h = dense(sp["wi"], xs, qctx=qctx, name=f"{name}/wi")
+        g = F.silu(dense(sp["wg"], xs, qctx=qctx, name=f"{name}/wg"))
+        parts.append(dense(sp["wo"], h * g, qctx=qctx, name=f"{name}/wo"))
     return all_reduce_sum(parts)[0]
 
 
@@ -454,17 +456,27 @@ def patch_embed(p: Params, img: torch.Tensor, *, patch: int,
 
 
 def _sdpa(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
-          causal: bool, q_offset: Union[int, torch.Tensor] = 0
-          ) -> torch.Tensor:
+          causal: bool, q_offset: Union[int, torch.Tensor] = 0,
+          q_chunk: Optional[int] = None) -> torch.Tensor:
     """q: [B, Sq, H, D], k/v: [B, Skv, H, D] (kv already head-repeated).
     With ``causal``, query i sits at ``q_offset + i`` (a scalar, or a
     [B] tensor of per-row offsets) and sees keys up to it.  The logits
-    are softmaxed in f32 and the probabilities cast to ``v``'s dtype."""
+    are softmaxed in f32 and the probabilities cast to ``v``'s dtype.
+
+    ``q_chunk`` bounds the live score tensor to [B, H, chunk, Skv] by
+    running the query blocks one after another (each at its own offset)
+    when ``Sq`` is a multiple of it above it: the long-prefill shapes,
+    whose whole [Sq, Skv] f32 scores would not fit device memory."""
+    sq = qh.shape[1]
+    if q_chunk is not None and sq > q_chunk and sq % q_chunk == 0:
+        return torch.cat([_sdpa(qh[:, i:i + q_chunk], kh, vh, causal=causal,
+                                q_offset=q_offset + i)
+                          for i in range(0, sq, q_chunk)], dim=1)
     dt = torch.promote_types(qh.dtype, kh.dtype)
     scale = 1.0 / math.sqrt(qh.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", qh.to(dt), kh.to(dt)) * scale
     if causal:
-        sq, sk = qh.shape[1], kh.shape[1]
+        sk = kh.shape[1]
         dev = qh.device
         qpos = torch.arange(sq, device=dev)
         kpos = torch.arange(sk, device=dev)
@@ -478,22 +490,75 @@ def _sdpa(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs, vh)
 
 
-def _attention_no_cache(p: Params, x: torch.Tensor, *, n_heads: int,
-                        n_kv: int, causal: bool, qctx: Optional[QuantCtx],
-                        name: str) -> torch.Tensor:
-    b, s, _ = x.shape
-    hd = p["wq"]["w"].shape[-1] // n_heads
-    qh = dense(p["wq"], x, qctx=qctx, name=f"{name}/q").reshape(
-        b, s, n_heads, hd)
-    kh = dense(p["wk"], x, qctx=qctx, name=f"{name}/k").reshape(
-        b, s, n_kv, hd)
-    vh = dense(p["wv"], x, qctx=qctx, name=f"{name}/v").reshape(
-        b, s, n_kv, hd)
-    if n_kv != n_heads:
-        kh = torch.repeat_interleave(kh, n_heads // n_kv, dim=2)
-        vh = torch.repeat_interleave(vh, n_heads // n_kv, dim=2)
-    out = _sdpa(qh, kh, vh, causal=causal).reshape(b, s, n_heads * hd)
-    return dense(p["wo"], out, qctx=qctx, name=f"{name}/o")
+def _rope_rows(rope, cache_index, s: int, device, cached: bool):
+    """The cos/sin rows of ``s`` new tokens: from ``cache_index`` (an
+    int or a 0-dim tensor shared by the batch, or a [B] tensor of
+    per-row positions) when ``cached``, else positions ``0 .. s-1``."""
+    cos, sin = rope
+    if not cached:
+        return cos[:s], sin[:s]
+    if torch.is_tensor(cache_index) and cache_index.ndim == 1:
+        tpos = cache_index[:, None] + torch.arange(s, device=device)[None]
+        # an idle slot's stale position plus a verify block can run past
+        # the table; JAX clamps such gather indices, and so does this
+        tpos = torch.clamp(tpos, max=cos.shape[0] - 1)
+        return cos[tpos], sin[tpos]                            # [B, S, ·]
+    # ``dynamic_slice`` keeps the window inside the table
+    i0 = min(max(int(cache_index), 0), cos.shape[0] - s)
+    return cos[i0:i0 + s], sin[i0:i0 + s]
+
+
+def _write_dense(cache: Dict[str, torch.Tensor], kh: torch.Tensor,
+                 vh: torch.Tensor, cache_index, kv_scales, dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one layer's new K/V into its dense cache ``{"k", "v"}``
+    ([B, T, n_kv, hd]) in place, then read the whole cache back at
+    ``dtype`` → (k, v) over all T positions.
+
+    An INT8 cache (``kv_scales``: the layer's per-kv-head scales [n_kv])
+    quantizes on write, ``clip(round(k / scale), -127, 127)``, and
+    dequantizes on read.  A scalar ``cache_index`` writes the S rows as
+    one slice from it (``dynamic_update_slice``, whose start is kept
+    inside the cache); a [B] one writes row b at ``cache_index[b] + i``.
+    Positions past T (an idle slot's stale position plus a verify block)
+    are dropped, as JAX's scatter drops them: such a write is sent to
+    position T-1 carrying the value that position holds after the
+    in-range writes, so it changes nothing (no host sync, no order
+    among equal writes to depend on)."""
+    if kv_scales is not None:
+        ks, vs = kv_scales
+        k_w = torch.clamp(torch.round(kh / ks[None, None, :, None]),
+                          -127, 127).to(cache["k"].dtype)
+        v_w = torch.clamp(torch.round(vh / vs[None, None, :, None]),
+                          -127, 127).to(cache["v"].dtype)
+    else:
+        k_w, v_w = kh.to(cache["k"].dtype), vh.to(cache["v"].dtype)
+    b, s = kh.shape[:2]
+    t_max = cache["k"].shape[1]
+    if torch.is_tensor(cache_index) and cache_index.ndim == 1:
+        dev = kh.device
+        ci = cache_index.to(dev).long()
+        t = ci[:, None] + torch.arange(s, device=dev)[None]      # [B, S]
+        oob = t >= t_max
+        rows = torch.arange(b, device=dev)
+        # the row's write that lands on T-1, where it has one
+        last = torch.clamp(t_max - 1 - ci, 0, s - 1)
+        reaches = (ci <= t_max - 1)[:, None, None]
+        for name, new in (("k", k_w), ("v", v_w)):
+            fill = torch.where(reaches, new[rows, last],
+                               cache[name][:, t_max - 1])
+            new = torch.where(oob[..., None, None], fill[:, None], new)
+            cache[name].index_put_(
+                (rows[:, None].expand(b, s), torch.clamp(t, max=t_max - 1)),
+                new)
+    else:
+        i0 = min(max(int(cache_index), 0), t_max - s)
+        cache["k"][:, i0:i0 + s] = k_w
+        cache["v"][:, i0:i0 + s] = v_w
+    if kv_scales is not None:
+        return (cache["k"].to(dtype) * ks.to(dtype)[None, None, :, None],
+                cache["v"].to(dtype) * vs.to(dtype)[None, None, :, None])
+    return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
 def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -507,14 +572,21 @@ def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
               qctx: Optional[QuantCtx] = None,
               calibrate_kv: bool = False,
               kv_lengths: Optional[torch.Tensor] = None,
+              kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              q_chunk: Optional[int] = None,
               name: str = "attn",
               ) -> Tuple[torch.Tensor, Any]:
-    """GQA attention → (output, new cache).
+    """GQA attention → (output, new cache); projections named
+    ``{name}/q|k|v|o`` (a calibrated edge keys its ranges by them).
 
-    With no ``kv_cache`` (ViT): projections named ``{name}/q|k|v|o``
-    and ``_sdpa`` over the sequence itself (``causal`` or not), no RoPE
-    (the LM's cacheless forward, which rotates, comes with A6); the new
-    cache is None.
+    With no ``kv_cache`` (ViT, the LM's cacheless forward): ``_sdpa``
+    over the sequence itself (``causal`` or not), RoPE at positions
+    ``0 .. S-1`` when ``rope`` is given; the new cache is None.
+
+    With a dense KV cache (``"k"`` key, [B, T, n_kv, hd]): the new K/V
+    are written at ``cache_index`` (``_write_dense``; INT8 with the
+    layer's ``kv_scales``), then every query attends over the whole
+    cache through ``_sdpa`` with ``q_offset = cache_index``.
 
     With a paged KV cache (``"k_pages"`` key; the LM, always causal):
     the new K/V are written into the block-table pages, then every query
@@ -523,14 +595,54 @@ def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
     a [B] tensor of per-slot positions (decode).  With a list of ``tp``
     shards, shard i holds the ``wq``/``wk``/``wv`` columns and ``wo``
     rows of kv heads ``[i·n_kv/tp, (i+1)·n_kv/tp)`` (and their query
-    groups) and ``kv_cache`` is the list of the shards' own pools.  The
-    dense caches come with a later slice (ROADMAP A5)."""
-    if kv_cache is None:
-        if rope is not None:
-            raise ValueError("RoPE without a KV cache is not ported")
-        return _attention_no_cache(p, x, n_heads=n_heads, n_kv=n_kv,
-                                   causal=causal, qctx=qctx,
-                                   name=name), None
+    groups) and ``kv_cache`` is the list of the shards' own pools; the
+    dense forms take one unsplit dict (ROADMAP A16)."""
+    if kv_cache is not None and "k_pages" in shards(kv_cache)[0]:
+        return _paged_attention(p, x, n_heads=n_heads, n_kv=n_kv, rope=rope,
+                                kv_cache=kv_cache, cache_index=cache_index,
+                                block_tables=block_tables, qctx=qctx,
+                                calibrate_kv=calibrate_kv,
+                                kv_lengths=kv_lengths, name=name)
+    parts = shards(p)
+    if len(parts) != 1 or isinstance(kv_cache, list):
+        raise NotImplementedError(
+            "tensor-parallel shards over a dense KV cache or none are not "
+            "ported (ROADMAP A16)")
+    p = parts[0]
+    b, s, _ = x.shape
+    hd = p["wq"]["w"].shape[-1] // n_heads
+    qh = dense(p["wq"], x, qctx=qctx, name=f"{name}/q").reshape(
+        b, s, n_heads, hd)
+    kh = dense(p["wk"], x, qctx=qctx, name=f"{name}/k").reshape(
+        b, s, n_kv, hd)
+    vh = dense(p["wv"], x, qctx=qctx, name=f"{name}/v").reshape(
+        b, s, n_kv, hd)
+    cached = kv_cache is not None and cache_index is not None
+    if rope is not None:
+        cos_q, sin_q = _rope_rows(rope, cache_index, s, x.device, cached)
+        qh = apply_rope(qh, cos_q, sin_q)
+        kh = apply_rope(kh, cos_q, sin_q)
+    q_offset = 0
+    if kv_cache is not None:
+        kh, vh = _write_dense(kv_cache, kh, vh, cache_index, kv_scales,
+                              x.dtype)
+        q_offset = (cache_index if torch.is_tensor(cache_index)
+                    and cache_index.ndim == 1 else int(cache_index))
+    if n_kv != n_heads:
+        kh = torch.repeat_interleave(kh, n_heads // n_kv, dim=2)
+        vh = torch.repeat_interleave(vh, n_heads // n_kv, dim=2)
+    out = _sdpa(qh, kh, vh, causal=causal, q_offset=q_offset,
+                q_chunk=q_chunk).reshape(b, s, n_heads * hd)
+    out = dense(p["wo"], out, qctx=qctx, name=f"{name}/o")
+    return out, (None if kv_cache is None
+                 else {"k": kv_cache["k"], "v": kv_cache["v"]})
+
+
+def _paged_attention(p: Sharded, x: torch.Tensor, *, n_heads: int,
+                     n_kv: int, rope, kv_cache, cache_index, block_tables,
+                     qctx, calibrate_kv: bool, kv_lengths, name: str
+                     ) -> Tuple[torch.Tensor, Any]:
+    """``attention`` over a paged KV cache (see there), shard by shard."""
     parts = _shard_inputs(p, qctx)
     caches = shards(kv_cache)
     tp = len(parts)
@@ -540,32 +652,26 @@ def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
     n_heads, n_kv = n_heads // tp, n_kv // tp
     hd = parts[0]["wq"]["w"].shape[1] // n_heads
     vec_index = torch.is_tensor(cache_index) and cache_index.ndim == 1
-    cos, sin = rope
-    if vec_index:
-        tpos = cache_index[:, None] + torch.arange(s, device=x.device)[None]
-        # an idle slot's stale position plus a verify block can run past
-        # the table; JAX clamps such gather indices, and so does this
-        tpos = torch.clamp(tpos, max=cos.shape[0] - 1)
-        cos_q, sin_q = cos[tpos], sin[tpos]                    # [B, S, ·]
-    else:
-        i0 = int(cache_index)
-        cos_q, sin_q = cos[i0:i0 + s], sin[i0:i0 + s]
+    cos_q, sin_q = _rope_rows(rope, cache_index, s, x.device, True)
     qs, ks, vs = [], [], []
     for sp in parts:
         dev = sp["wq"]["w"].device
         xs, c, sn = x.to(dev), cos_q.to(dev), sin_q.to(dev)
-        qh = dense(sp["wq"], xs, qctx=qctx).reshape(b, s, n_heads, hd)
-        kh = dense(sp["wk"], xs, qctx=qctx).reshape(b, s, n_kv, hd)
+        qh = dense(sp["wq"], xs, qctx=qctx, name=f"{name}/q").reshape(
+            b, s, n_heads, hd)
+        kh = dense(sp["wk"], xs, qctx=qctx, name=f"{name}/k").reshape(
+            b, s, n_kv, hd)
         qs.append(apply_rope(qh, c, sn))
         ks.append(apply_rope(kh, c, sn))
-        vs.append(dense(sp["wv"], xs, qctx=qctx).reshape(b, s, n_kv, hd))
+        vs.append(dense(sp["wv"], xs, qctx=qctx, name=f"{name}/v").reshape(
+            b, s, n_kv, hd))
 
     outs, new_caches = _paged_cache_attention(
         caches, qs, ks, vs, block_tables=block_tables,
         cache_index=cache_index, vec_index=vec_index,
         calibrate_kv=calibrate_kv, kv_lengths=kv_lengths, dtype=x.dtype)
     out = all_reduce_sum([dense(sp["wo"], o.reshape(b, s, n_heads * hd),
-                                qctx=qctx)
+                                qctx=qctx, name=f"{name}/o")
                           for sp, o in zip(parts, outs)])[0]
     return out, (new_caches if isinstance(kv_cache, list)
                  else new_caches[0])

@@ -5,9 +5,12 @@ Counterpart of the dense-LM part of ``repro.models.transformer``.  Block
 parameters stay stacked (every leaf carries a leading ``[L]`` axis) so
 the weight bridge is a plain map and block sub-ranges are views; the
 JAX ``lax.scan`` over layers becomes a Python loop that writes each
-layer's slice of the paged KV cache in place.  Only the paged cache
-layouts (INT8 or fp pages) are ported; MoE blocks and the dense caches
-come with later slices.
+layer's slice of the KV cache in place.  The cache layouts are the
+reference's: dense (fp, or INT8 with per-(layer, kv-head) scales) and
+paged (fp or INT8 pages with per-slot scales); ``forward`` is the
+cacheless causal pass, and ``make_segments`` the block-granular view
+the paper's ``CollaborativeEngine`` splits.  MoE blocks (and their aux
+loss, 0 here) come with a later slice, as does ``lm_loss``.
 """
 from __future__ import annotations
 
@@ -17,13 +20,15 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.bridge import tree_map
+from repro_torch.core.collab import Segment, SegmentedModel
 from repro_torch.core.graph import LayerGraph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import QuantCtx
 
 Params = Dict[str, Any]
-# a paged KV cache, or the list of a tensor-parallel cloud's shard caches
+# a dense or paged KV cache, or the list of a tensor-parallel cloud's
+# paged shard caches
 Cache = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
 
 
@@ -39,6 +44,7 @@ class LMConfig:
     head_dim: Optional[int] = None
     rope_base: float = 10000.0
     dtype: torch.dtype = torch.float32      # params + compute dtype
+    q_chunk: Optional[int] = None   # query-block tiling of long prefills
 
     @property
     def hd(self) -> int:
@@ -88,25 +94,42 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
 
 def block_apply(p: Params, x: torch.Tensor, cfg: LMConfig, *,
                 rope: Tuple[torch.Tensor, torch.Tensor],
-                cache: Cache,
-                cache_index: Union[int, torch.Tensor],
-                block_tables: torch.Tensor,
+                cache: Optional[Cache] = None,
+                cache_index: Union[int, torch.Tensor, None] = None,
+                block_tables: Optional[torch.Tensor] = None,
                 qctx: Optional[QuantCtx] = None,
+                kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 calibrate_kv: bool = False,
                 kv_lengths: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, Cache]:
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     h, new_cache = L.attention(
         p["attn"], L.rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, rope=rope, kv_cache=cache, cache_index=cache_index,
         block_tables=block_tables, qctx=qctx, calibrate_kv=calibrate_kv,
-        kv_lengths=kv_lengths)
+        kv_lengths=kv_lengths, kv_scales=kv_scales, q_chunk=cfg.q_chunk)
     x = x + h
     z = L.rmsnorm(p["ln2"], x)
     return x + L.swiglu(p["mlp"], z, qctx=qctx), new_cache
 
 
+def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
+            qctx: Optional[QuantCtx] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward, no cache → (logits [B, S, V], aux loss).  The
+    aux loss is the MoE blocks' balance term, 0 for these dense blocks
+    (a 0-dim f32 tensor, as the reference returns it)."""
+    s = tokens.shape[1]
+    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    rope = L.rope_table(s, cfg.hd, base=cfg.rope_base, dtype=cfg.dtype,
+                        device=tokens.device)
+    x, _ = run_blocks(params["blocks"], x, cfg, rope=rope, qctx=qctx)
+    x = L.rmsnorm(params["final_norm"], x)
+    logits = L.dense(params["lm_head"], x, name="lm_head")
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 # ---------------------------------------------------------------------------
-# Serving: prefill + decode with a paged KV cache
+# Serving: prefill + decode with a KV cache
 # ---------------------------------------------------------------------------
 
 
@@ -115,16 +138,34 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, *,
                paged: bool = False, page_size: int = 16,
                num_pages: Optional[int] = None,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Allocate a paged KV cache: ``{"k_pages", "v_pages"}`` of shape
-    ``[L, num_pages, page_size, n_kv, hd]`` — INT8 with per-slot scales
-    ``[L, batch, n_kv]`` when ``quantized``, else ``dtype`` (default
-    ``cfg.dtype``).  Page 0 is the dump page idle slots write into."""
-    if not paged:
-        raise NotImplementedError(
-            "dense KV caches are not ported yet (ROADMAP A6); pass "
-            "paged=True")
+    """Allocate a KV cache in one of the reference's layouts:
+
+    * **dense** (default): ``{"k", "v"}`` of shape
+      ``[L, batch, max_len, n_kv, hd]`` at ``dtype`` (default
+      ``cfg.dtype``) — every slot holds ``max_len`` positions;
+    * **dense + ``quantized``**: the same shape at INT8 with
+      per-(layer, kv-head) symmetric ``k_scale``/``v_scale`` ``[L, n_kv]``
+      (0.05 each: nothing calibrates them, as in the reference);
+    * **``paged``**: ``{"k_pages", "v_pages"}`` of shape
+      ``[L, num_pages, page_size, n_kv, hd]`` — INT8 with per-slot
+      scales ``[L, batch, n_kv]`` when ``quantized`` (calibrated from
+      each prompt at prefill), else ``dtype``.  Page 0 is the dump page
+      idle slots write into.
+
+    ``layers`` overrides the leading layer axis (the edge prefix and the
+    cloud suffix each cache only their own blocks)."""
     dev = resolve_device(device)
     n_layers = cfg.n_layers if layers is None else layers
+    if not paged:
+        shape = (n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+        kdtype = torch.int8 if quantized else (dtype or cfg.dtype)
+        c = {"k": torch.zeros(shape, dtype=kdtype, device=dev),
+             "v": torch.zeros(shape, dtype=kdtype, device=dev)}
+        if quantized:
+            c["k_scale"] = torch.full((n_layers, cfg.n_kv), 0.05,
+                                      dtype=torch.float32, device=dev)
+            c["v_scale"] = torch.full_like(c["k_scale"], 0.05)
+        return c
     n_pages = num_pages if num_pages is not None else (
         batch * ((max_len + page_size - 1) // page_size) + 1)
     pdtype = torch.int8 if quantized else (dtype or cfg.dtype)
@@ -144,26 +185,36 @@ def _n_layers(blocks: Params) -> int:
 
 def run_blocks(blocks: Params, x: torch.Tensor, cfg: LMConfig, *,
                rope: Tuple[torch.Tensor, torch.Tensor],
-               cache: Cache,
-               cache_index: Union[int, torch.Tensor],
-               block_tables: torch.Tensor,
+               cache: Optional[Cache] = None,
+               cache_index: Union[int, torch.Tensor, None] = None,
+               block_tables: Optional[torch.Tensor] = None,
                qctx: Optional[QuantCtx] = None,
                calibrate_kv: bool = False,
                kv_lengths: Optional[torch.Tensor] = None,
-               ) -> Tuple[torch.Tensor, Cache]:
+               ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run a sub-range of stacked blocks over hidden states, layer by
-    layer, updating ``cache`` (one slice per layer) in place.  Returns
-    ``(x, cache)``; the cache is the one passed in.  Tensor-parallel
-    blocks (``serve.sharding.shard_suffix_blocks``: ``attn``/``mlp``
-    lists of shards) take the list of the shards' caches; the norms and
+    layer.  With no ``cache``: the cacheless causal pass (positions
+    ``0 .. S-1``); returns ``(x, None)``.  With a cache, each layer's
+    slice is updated in place and the cache passed in is returned:
+    a dense cache at a scalar ``cache_index`` (prefill) or a [B] one
+    (decode, verify: row b's S tokens at ``cache_index[b] + i``), its
+    INT8 scales handed to the layer as ``kv_scales`` (the reference
+    pops them out of the scanned slice); a paged cache with
+    ``block_tables``, calibrating its per-slot INT8 scales when
+    ``calibrate_kv``.  Tensor-parallel blocks
+    (``serve.sharding.shard_suffix_blocks``: ``attn``/``mlp`` lists of
+    shards) take the list of the shards' paged caches; the norms and
     the residual stream stay on ``x``'s device."""
     for i in range(_n_layers(blocks)):
         bp = tree_map(lambda v: v[i], blocks)
-        c = tree_map(lambda v: v[i], cache)
+        c = None if cache is None else tree_map(lambda v: v[i], cache)
+        scales = None
+        if isinstance(c, dict) and "k" in c and "k_scale" in c:
+            scales = (c.pop("k_scale"), c.pop("v_scale"))
         x, new_c = block_apply(bp, x, cfg, rope=rope, cache=c,
                                cache_index=cache_index,
                                block_tables=block_tables, qctx=qctx,
-                               calibrate_kv=calibrate_kv,
+                               kv_scales=scales, calibrate_kv=calibrate_kv,
                                kv_lengths=kv_lengths)
         if calibrate_kv:
             for full, new in zip(L.shards(cache), L.shards(new_c)):
@@ -183,26 +234,37 @@ def lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
                       for h in L.shards(params["lm_head"])], dim=-1)
 
 
+def _cache_span(cache: Cache,
+                block_tables: Optional[torch.Tensor]) -> int:
+    """Longest position the cache layout can address (the RoPE table's
+    length)."""
+    c = L.shards(cache)[0]
+    if "k" in c:
+        return c["k"].shape[2]
+    return block_tables.shape[1] * c["k_pages"].shape[2]
+
+
 def _rope_for(cfg: LMConfig, cache, block_tables, device):
-    span = block_tables.shape[1] * L.shards(cache)[0]["k_pages"].shape[2]
-    return L.rope_table(span, cfg.hd, base=cfg.rope_base, dtype=cfg.dtype,
-                        device=device)
+    return L.rope_table(_cache_span(cache, block_tables), cfg.hd,
+                        base=cfg.rope_base, dtype=cfg.dtype, device=device)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
-            cache: Cache, block_tables: torch.Tensor,
+            cache: Cache, block_tables: Optional[torch.Tensor] = None,
             qctx: Optional[QuantCtx] = None,
             last_pos: Optional[torch.Tensor] = None,
             ) -> Tuple[torch.Tensor, Cache]:
     """Process the full prompt; returns (last-token logits, cache).
     ``last_pos`` [B] is each row's last real token (bucket-padded
-    prompts); an INT8 cache calibrates its per-slot scales here."""
+    prompts).  A paged cache needs ``block_tables`` and calibrates its
+    per-slot INT8 scales here; a dense INT8 cache keeps its scales."""
     b, _ = tokens.shape
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     rope = _rope_for(cfg, cache, block_tables, tokens.device)
     x, cache = run_blocks(params["blocks"], x, cfg, rope=rope, cache=cache,
                           cache_index=0, block_tables=block_tables,
-                          qctx=qctx, calibrate_kv=True,
+                          qctx=qctx,
+                          calibrate_kv="k_pages" in L.shards(cache)[0],
                           kv_lengths=None if last_pos is None
                           else last_pos + 1)
     if last_pos is not None:
@@ -213,18 +275,35 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
 
 
 def decode_step(params: Params, token: torch.Tensor,
-                cache: Cache, cache_index: torch.Tensor,
-                cfg: LMConfig, *, block_tables: torch.Tensor,
+                cache: Cache, cache_index: Union[int, torch.Tensor],
+                cfg: LMConfig, *,
+                block_tables: Optional[torch.Tensor] = None,
                 qctx: Optional[QuantCtx] = None,
                 ) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step: token [B] → logits [B, V]; ``cache_index``
-    is the [B] vector of per-slot positions."""
+    is a scalar position shared by the batch or the [B] vector of
+    per-slot positions (a paged cache takes the vector)."""
     x = L.embed(params["embed"], token[:, None]).to(cfg.dtype)
     rope = _rope_for(cfg, cache, block_tables, token.device)
     x, cache = run_blocks(params["blocks"], x, cfg, rope=rope, cache=cache,
                           cache_index=cache_index, block_tables=block_tables,
                           qctx=qctx)
     return lm_head(params, x)[:, 0], cache
+
+
+def split_blocks(params: Params, cfg: LMConfig, cut_layer: int
+                 ) -> Tuple[Params, Params]:
+    """Split the stacked block params at the paper's partition point:
+    (edge prefix = blocks[0..cut], cloud suffix = blocks[cut+1..L)), as
+    views."""
+    if not 0 <= cut_layer < cfg.n_layers:
+        raise ValueError(f"cut_layer {cut_layer} outside [0, "
+                         f"{cfg.n_layers})")
+
+    def take(lo, hi):
+        return tree_map(lambda v: v[lo:hi], params["blocks"])
+
+    return take(0, cut_layer + 1), take(cut_layer + 1, cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -259,3 +338,44 @@ def make_graph(cfg: LMConfig, *, batch: int, seq: int) -> LayerGraph:
           flops=2 * tok * d * cfg.vocab, param_elems=d * cfg.vocab + d)
     g.validate()
     return g
+
+
+# ---------------------------------------------------------------------------
+# Collaborative-serving segments (block granularity)
+# ---------------------------------------------------------------------------
+
+
+def make_segments(params: Params, cfg: LMConfig, *, seq: int
+                  ) -> SegmentedModel:
+    """``SegmentedModel`` view for the paper's ``CollaborativeEngine``:
+    embed → one segment per block → final norm and head, each cacheless
+    (``forward``'s math, split).  A block's residual ``add2`` fuses into
+    its ffn node (§2.2 rule 1), so the candidate point carrying the
+    block boundary, and the segment's name, is ``blk{i}/ffn``.  Token
+    ids stay integer through the embed segment; the RoPE table
+    (``seq`` positions) follows each block's input to its device."""
+    rope_const = L.rope_table(seq, cfg.hd, base=cfg.rope_base,
+                              dtype=cfg.dtype,
+                              device=params["embed"]["emb"].device)
+
+    def embed_apply(p, tokens, *, qctx=None):
+        return L.embed(p, tokens).to(cfg.dtype)
+
+    def block_seg_apply(p, x, *, qctx=None):
+        rope = tuple(t.to(x.device) for t in rope_const)
+        return block_apply(p, x, cfg, rope=rope, qctx=qctx)[0]
+
+    def head_apply(p, x, *, qctx=None):
+        x = L.rmsnorm(p["final_norm"], x)
+        return L.dense(p["lm_head"], x, qctx=qctx, name="lm_head")
+
+    segs = [Segment("embed", embed_apply, params["embed"])]
+    for i in range(cfg.n_layers):
+        bp = tree_map(lambda v, i=i: v[i], params["blocks"])
+        segs.append(Segment(f"blk{i}/ffn", block_seg_apply, bp))
+    segs.append(Segment("lm_head", head_apply,
+                        {"final_norm": params["final_norm"],
+                         "lm_head": params["lm_head"]}))
+    return SegmentedModel(name=cfg.name,
+                          graph=make_graph(cfg, batch=1, seq=seq),
+                          segments=segs)

@@ -2,8 +2,13 @@
 
 Counterpart of ``repro.serve.engine.CollaborativeServingEngine``.  The
 INT8 edge prefix (the first ``cut_layer + 1`` blocks on the fake-quant
-lattice) and the fp cloud suffix each own a paged KV cache covering
-only their block sub-range, over **one shared block table**.  Each
+lattice) and the fp cloud suffix each own a KV cache covering only
+their block sub-range: by default paged INT8 over **one shared block
+table**; ``edge_paged`` / ``cloud_paged`` false give that side a dense
+cache (the edge's INT8 with fixed scales when ``edge_int8``, the cloud's
+fp whatever ``cloud_int8`` says, as in the reference), ``edge_int8`` /
+``cloud_int8`` false fp pages; any of the four layout combinations
+runs, and the page pool exists only while a side is paged.  Each
 prefill ships the prompt's per-row Eq.(1) boundary blob uplink; each
 decode step ships a per-row-quantized ``[B, 1, D]`` boundary delta
 uplink and the token downlink, charged to ``ServeStats`` byte for byte
@@ -36,10 +41,12 @@ deadline (``policy.DeadlineAdmission``).
 ``mesh`` (``launch.mesh.make_serve_mesh``) runs the cloud suffix, its
 head and its page pool tensor-parallel over the mesh's ``model`` shards
 (``serve.sharding``), and the auto policy prices the cloud as a
-TP-scaled device.  A request with ``SamplingParams(temperature > 0)``
+TP-scaled device (a dense cloud cache on more than one shard is not
+ported, ROADMAP A16).  A request with ``SamplingParams(temperature > 0)``
 is sampled (``serve.sampling``); all-greedy traffic never enters a
-sampled phase.  The dense cache layouts (``edge_paged``/``cloud_paged``
-false) raise ``NotImplementedError`` naming ROADMAP A5.
+sampled phase.  ``forward`` / ``generate_recompute`` are the seed
+recompute path (``serve.seedpath``): no cache, the whole sequence again
+at every step.
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from repro_torch.serve.phases import _SplitPhases
 from repro_torch.serve.policy import (AdaptivePolicy, DeadlineAdmission,
                                       _CutBank)
 from repro_torch.serve.scheduler import _SamplingMirrors, _SlotEngine
+from repro_torch.serve.seedpath import _SeedPathMixin
 from repro_torch.serve.sharding import place_collab_engine, tp_size
 from repro_torch.serve.spec import _SpecDraftMixin
 from repro_torch.serve.transport import (_MSG_BYTES, _QP_BYTES, _TOK_BYTES,
@@ -73,11 +81,12 @@ Params = Any
 __all__ = ["ServingEngine", "CollaborativeServingEngine"]
 
 
-class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
-                                 _SplitPhases, _SamplingMirrors,
-                                 _SlotEngine):
-    """Paper mode with incremental decode over split, shared-table paged
-    KV caches and the online tuning loop (see the module docstring), on
+class CollaborativeServingEngine(_SpecDraftMixin, _SeedPathMixin,
+                                 _OverloadMixin, _SplitPhases,
+                                 _SamplingMirrors, _SlotEngine):
+    """Paper mode with incremental decode over split KV caches (paged over
+    a shared table by default, or dense) and the online tuning loop (see
+    the module docstring), on
     ``device`` (default ``"cuda"``), its cloud half tensor-parallel over
     the shards of ``mesh`` when one is given (its first device is then
     the engine's device; ``data > 1`` raises, ROADMAP A16).
@@ -107,10 +116,6 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
                  admission: Union[DeadlineAdmission, str, None] = None,
                  mesh=None, timed: bool = False,
                  device: DeviceLike = None):
-        if not (edge_paged and cloud_paged):
-            raise NotImplementedError(
-                "CollaborativeServingEngine(edge_paged/cloud_paged=False) "
-                "is not ported yet (ROADMAP A5)")
         if not 0 <= cut_layer < cfg.n_layers:
             raise ValueError(
                 f"cut_layer {cut_layer} outside [0, {cfg.n_layers})")
@@ -119,7 +124,9 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
                          device=dev, timed=timed)
         self.transport = Transport(channel)
         self.a_bits = a_bits
+        self.edge_paged = edge_paged
         self.edge_int8 = edge_int8
+        self.cloud_paged = cloud_paged
         self.cloud_int8 = cloud_int8
         self.page_size = page_size
         self.mesh = mesh
@@ -185,10 +192,12 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         self._edge_qctx = None if a_bits is None else \
             ML.QuantCtx(a_bits=a_bits, quantize_weights=False, act_axis=0)
         deploy_qctx = None if a_bits is None else ML.QuantCtx(a_bits=a_bits)
-        # one shared page pool / block table for every split cache; its
-        # geometry is cut-independent, so it survives re-partitions
-        self._pool = _PagedPool.build(max_batch, max_len, page_size,
-                                      num_pages, dev)
+        # one shared page pool / block table for every paged split cache;
+        # its geometry is cut-independent, so it survives re-partitions
+        self._pool = None
+        if edge_paged or cloud_paged:
+            self._pool = _PagedPool.build(max_batch, max_len, page_size,
+                                          num_pages, dev)
         # overload robustness (demand paging / pressure faults / deadline
         # admission): hook implementations live in serve.overload
         self._init_overload(cfg, demand_paged=demand_paged,
@@ -234,31 +243,40 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         self.n_cloud = cfg.n_layers - self.n_edge
         self.edge_blocks, self.cloud_blocks, self.draft_blocks = \
             self._bank.get(cut)
-        n_pool = self._pool.allocator.num_pages
         # the old cut's caches go before the new ones are allocated
         self._edge_cache = self._cloud_cache = None
         if self._spec_max > 1:
             self._draft_cache = None
-        self._edge_cache = TF.init_cache(
-            cfg, self.max_batch, self.max_len, layers=self.n_edge,
-            paged=True, quantized=self.edge_int8, page_size=self.page_size,
-            num_pages=n_pool, device=self.device)
-        self._cloud_cache = TF.init_cache(
-            cfg, self.max_batch, self.max_len, layers=self.n_cloud,
-            paged=True, quantized=self.cloud_int8, page_size=self.page_size,
-            num_pages=n_pool, device=self.device)
+        # the cloud's dense cache is fp whatever cloud_int8 says, as the
+        # reference allocates it
+        self._edge_cache = self._new_cache(self.n_edge, self.edge_paged,
+                                           self.edge_int8)
+        self._cloud_cache = self._new_cache(
+            self.n_cloud, self.cloud_paged,
+            self.cloud_int8 and self.cloud_paged)
         if self._spec_max > 1:
             # the edge's draft model: the bank's INT8 copy of the cloud
             # suffix, over a draft cache in the edge's layout that shares
             # the block table
-            self._draft_cache = TF.init_cache(
-                cfg, self.max_batch, self.max_len, layers=self.n_cloud,
-                paged=True, quantized=self.edge_int8,
-                page_size=self.page_size, num_pages=n_pool,
-                device=self.device)
+            self._draft_cache = self._new_cache(self.n_cloud,
+                                                self.edge_paged,
+                                                self.edge_int8)
         place_collab_engine(self)
         if count:
             self.stats.cut_switches += 1
+
+    def _new_cache(self, layers: int, paged: bool, quantized: bool):
+        """A split cache of ``layers`` blocks for every slot: paged over
+        the shared pool's pages, or dense over ``max_len`` positions."""
+        return TF.init_cache(
+            self.cfg, self.max_batch, self.max_len, layers=layers,
+            paged=paged, quantized=quantized, page_size=self.page_size,
+            num_pages=self._pool.allocator.num_pages if paged else None,
+            device=self.device)
+
+    def _table(self):
+        """The shared block table on the device, or None with no pool."""
+        return None if self._pool is None else self._pool.table_dev()
 
     def _policy_tick(self, n_active: int) -> bool:
         if self.policy is None:
@@ -293,9 +311,11 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
     # -- scheduler hooks ----------------------------------------------------
     def _admit(self, toks, plens, max_news, slots, cur, pos, samplings=None):
         self._note_samplings(slots, samplings)
-        bt_rows = self._pool.admit(slots, plens,
-                                   self._admit_reserve(max_news),
-                                   toks.shape[1])
+        bt_rows = None
+        if self._pool is not None:
+            bt_rows = self._pool.admit(slots, plens,
+                                       self._admit_reserve(max_news),
+                                       toks.shape[1])
         slots_d = torch.as_tensor(slots, device=self.device).long()
         plens_d = torch.as_tensor(plens, device=self.device)
         blob, qp = self._edge_prefill(self.edge_blocks, self.embed, toks,
@@ -339,7 +359,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
             lambda *a: self._cloud_decode_sample_impl(*a, *samp))
 
     def _serial_step(self, cur, pos, n_active, cloud_step):
-        bt = self._pool.table_dev()
+        bt = self._table()
         blob, qp = self._edge_decode(self.edge_blocks, self.embed, cur,
                                      self._edge_cache, pos, bt)
         self.transport.account_blob(self.stats, blob, phase="decode",
@@ -394,7 +414,7 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         return (blobs, scales, zps, drafts), nbytes, verify
 
     def _spec_round(self, cur, pos, slots):
-        bt = self._pool.table_dev()
+        bt = self._table()
         _, nbytes, verify = self._draft_round(cur, pos, bt, slots)
         self.transport.charge(self.stats, nbytes, phase="decode")
         toks, n_commit, cur, pos = verify(pos)
@@ -416,16 +436,20 @@ class CollaborativeServingEngine(_SpecDraftMixin, _OverloadMixin,
         self.telemetry.observe_round((k - 1) * n_active, hits)
 
     def _retire(self, slot):
-        self._pool.retire(slot)
+        if self._pool is not None:
+            self._pool.retire(slot)
 
     def _can_admit(self, group_shapes, plen, max_new, bucket):
+        if self._pool is None:
+            return True
         shapes = [(p, int(self._admit_reserve(np.int64(m))))
                   for p, m in group_shapes + [(plen, max_new)]]
         return self._pool.can_admit(shapes, bucket)
 
     def edge_cache_bytes(self, *, live_only: bool = False) -> int:
-        """Edge KV footprint; ``live_only`` counts allocated pages only."""
-        if live_only:
+        """Edge KV footprint; ``live_only`` counts allocated pages only
+        (a dense cache is all live)."""
+        if self.edge_paged and live_only:
             return self._pool.live_cache_bytes(self._edge_cache)
         return sum(v.numel() * v.element_size()
                    for v in self._edge_cache.values())

@@ -2,9 +2,16 @@
 boundary lattice and the edge-prefix / cloud-suffix prefill and decode.
 
 Counterpart of ``repro.serve.phases._SplitPhases``.  Anything mixing it
-in provides ``cfg``, ``max_len``, ``a_bits``, ``edge_int8``/
-``cloud_int8``, ``_edge_qctx`` and ``_rope()``.  Each phase updates its
-paged cache in place and returns the new per-slot state; the cloud
+in provides ``cfg``, ``max_len``, ``a_bits``, ``edge_paged``/
+``edge_int8``/``cloud_paged``/``cloud_int8``, ``n_edge``/``n_cloud``,
+``device``, ``_edge_qctx`` and ``_rope()``.  Each phase updates its
+cache in place and returns the new per-slot state.  A prefill over a
+paged cache writes the group's pages through its block-table rows; over
+a dense cache it fills a cache of the group's ``n`` rows and
+``max_len`` positions and copies only its ``k`` and ``v`` into the
+slots (a dense INT8 cache keeps its fixed scales; the cloud's dense
+cache is fp whatever ``cloud_int8`` says, as in the reference).  The
+cloud
 phases take the engine's tensor-parallel blocks, head and shard caches
 as they come (``serve.sharding``), and see the whole vocabulary's
 logits (``transformer.lm_head`` concatenates a split head's shards).
@@ -54,18 +61,41 @@ class _SplitPhases:
                              bits=self.a_bits)
         return quantize(h, qp), qp
 
+    def _prefill_blocks(self, blocks, x, cache, slots, bt_rows, plens, *,
+                        paged: bool, int8: bool, layers: int, qctx=None
+                        ) -> torch.Tensor:
+        """One prefill of ``blocks`` over ``x`` into the slots' rows of
+        ``cache`` → the blocks' output.  ``paged``: through the group's
+        block-table rows, calibrating per-slot INT8 scales when
+        ``int8``; else through a dense cache of the group's rows
+        (INT8 with the fixed scales when ``int8``), whose ``k`` and
+        ``v`` are then copied into the slots."""
+        cfg = self.cfg
+        n = x.shape[0]
+        if paged:
+            group = _paged_prefill_view(cache, n)
+            y, group = TF.run_blocks(blocks, x, cfg, rope=self._rope(),
+                                     cache=group, cache_index=0, qctx=qctx,
+                                     block_tables=bt_rows,
+                                     calibrate_kv=int8, kv_lengths=plens)
+            _paged_prefill_merge(cache, group, slots)
+            return y
+        small = TF.init_cache(cfg, n, self.max_len, layers=layers,
+                              quantized=int8, device=self.device)
+        y, small = TF.run_blocks(blocks, x, cfg, rope=self._rope(),
+                                 cache=small, cache_index=0, qctx=qctx)
+        for k in ("k", "v"):
+            cache[k][:, slots] = small[k]
+        return y
+
     def _edge_prefill(self, blocks, embed, toks, cache, slots, bt_rows,
                       plens):
         cfg = self.cfg
         s = toks.shape[1]
         x = ML.embed(embed, toks).to(cfg.dtype)
-        group = _paged_prefill_view(cache, toks.shape[0])
-        h, group = TF.run_blocks(blocks, x, cfg, rope=self._rope(),
-                                 cache=group, cache_index=0,
-                                 qctx=self._edge_qctx, block_tables=bt_rows,
-                                 calibrate_kv=self.edge_int8,
-                                 kv_lengths=plens)
-        _paged_prefill_merge(cache, group, slots)
+        h = self._prefill_blocks(blocks, x, cache, slots, bt_rows, plens,
+                                 paged=self.edge_paged, int8=self.edge_int8,
+                                 layers=self.n_edge, qctx=self._edge_qctx)
         # Eq.(1) per batch row; pad positions are clamped to a real
         # activation before the min/max, so bucket padding never sets a
         # request's range (and never crosses the wire)
@@ -81,13 +111,10 @@ class _SplitPhases:
         cfg = self.cfg
         h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2)
         n = h.shape[0]
-        group = _paged_prefill_view(cache, n)
-        x, group = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
-                                 cache=group, cache_index=0,
-                                 block_tables=bt_rows,
-                                 calibrate_kv=self.cloud_int8,
-                                 kv_lengths=plens)
-        _paged_prefill_merge(cache, group, slots)
+        x = self._prefill_blocks(blocks, h, cache, slots, bt_rows, plens,
+                                 paged=self.cloud_paged,
+                                 int8=self.cloud_int8 and self.cloud_paged,
+                                 layers=self.n_cloud)
         last = x[torch.arange(n, device=x.device), (plens - 1).long()]
         return TF.lm_head(tail, last[:, None])[:, 0]
 

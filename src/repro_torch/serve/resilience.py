@@ -75,12 +75,17 @@ class ResilientCollaborativeEngine(CollaborativeServingEngine):
                       outage window).
 
     ``round_log`` holds one ``{"t_s", "committed", "cloud_down"}`` entry
-    per round: the availability trace over an outage."""
+    per round: the availability trace over an outage.  It needs the
+    paged layouts on both sides, as the reference does: the resync
+    replays into the cloud's pages through the shared block table."""
 
     _standby = True
 
     def __init__(self, params, cfg, *, transport: Optional[
             ReliableTransport] = None, probe_every: int = 2, **kw):
+        if not (kw.get("edge_paged", True) and kw.get("cloud_paged", True)):
+            raise ValueError("resilient serving needs the paged KV layouts "
+                             "(the resync replays into the cloud's pages)")
         super().__init__(params, cfg, **kw)
         if transport is None:
             transport = ReliableTransport(self.transport.channel,

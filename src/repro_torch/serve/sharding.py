@@ -16,7 +16,8 @@ per partition (``place_collab_engine`` / ``place_cloud_engine``):
   kv-head groups;
 * **lm_head** — vocab column-split when divisible; the shards' logits
   are concatenated in shard order before the argmax;
-* **paged cloud KV pool** — one contiguous pool per shard holding its
+* **paged cloud KV pool** (a dense cache only on a one-shard mesh) —
+  one contiguous pool per shard holding its
   kv heads (``launch.shardings.paged_pool_spec``), so each shard stores,
   dequantizes and reads only its own INT8 slice;
 * **everything edge-side** (embed, edge and draft blocks, edge and draft
@@ -120,10 +121,18 @@ def shard_cloud_cache(cache: Dict[str, torch.Tensor],
     """A paged cloud cache → the list of per-shard caches, each a
     contiguous pool ``[L, n_pages, page, n_kv / tp, hd]`` with its scale
     rows ``[L, B, n_kv / tp]`` on its shard's device; the cache whole on
-    the first device when the pool's kv heads do not split."""
+    the first device when the pool's kv heads do not split.  A dense
+    cache stays whole on the first device of a one-shard mesh; on more
+    shards it raises (not ported, ROADMAP A16)."""
+    devs = mesh.model_devices(0)
+    if "k" in cache:
+        if len(devs) > 1:
+            raise NotImplementedError(
+                "a dense cloud KV cache on a tensor-parallel mesh is not "
+                "ported (ROADMAP A16); pass paged=True / cloud_paged=True")
+        return {k: v.to(devs[0]) for k, v in cache.items()}
     _, n_pages, _, n_kv, hd = cache["k_pages"].shape
     pool = paged_pool_spec(mesh, n_pages=n_pages, n_kv=n_kv, head_dim=hd)
-    devs = mesh.model_devices(0)
     if pool[3] != "model" or len(devs) == 1:
         return {k: v.to(devs[0]) for k, v in cache.items()}
     shards = []

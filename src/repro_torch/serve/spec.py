@@ -37,6 +37,11 @@ largest k any controller may pick, and a raise out of k = 1 with live
 slots rebuilds their draft K/V from committed state
 (``_rebuild_draft_caches``).
 
+Every draft, verify and prefill phase runs over either cache layout
+(``edge_paged`` / ``cloud_paged``): over a dense cache a verify block's
+positions past ``max_len`` (an idle slot's stale position) are dropped,
+as JAX's scatter drops them (``models.layers._write_dense``).
+
 The mixin also hosts the **degradation** phases of the resilient engine
 (``serve.resilience``), the draft machinery with the verify removed:
 while the cloud is unreachable the edge's INT8 suffix copy stops
@@ -49,7 +54,8 @@ the buffered boundary rows through the cloud suffix (the verify's
 q-block form, ungraded) to rebuild its paged KV: from each slot's own
 resume position, or from position 0 with calibration for a slot
 admitted during the outage.  ``phase_calls["edge_only"]`` and
-``["resync"]`` count their calls.
+``["resync"]`` count their calls.  These run on the paged layouts only,
+as the resilient engine does.
 """
 from __future__ import annotations
 
@@ -62,7 +68,6 @@ from repro_torch.core.quant import dequantize
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as TF
 from repro_torch.serve import sampling as S
-from repro_torch.serve.kvcache import _paged_prefill_merge, _paged_prefill_view
 from repro_torch.serve.scheduler import _bucket_len
 
 __all__ = ["_SpecDraftMixin"]
@@ -98,16 +103,11 @@ class _SpecDraftMixin:
         dequantized boundary blob the cloud saw, so the draft model starts
         every round from the committed prefix state.  Returns the suffix's
         output rows (the edge-only admission reads its logits off them)."""
-        cfg = self.cfg
-        h = dequantize(blob, qp).to(cfg.dtype)              # Eq.(2), locally
-        group = _paged_prefill_view(cache, h.shape[0])
-        y, group = TF.run_blocks(blocks, h, cfg, rope=self._rope(),
-                                 cache=group, cache_index=0,
-                                 qctx=self._edge_qctx, block_tables=bt_rows,
-                                 calibrate_kv=self.edge_int8,
-                                 kv_lengths=plens)
-        _paged_prefill_merge(cache, group, slots)
-        return y
+        h = dequantize(blob, qp).to(self.cfg.dtype)        # Eq.(2), locally
+        return self._prefill_blocks(blocks, h, cache, slots, bt_rows, plens,
+                                    paged=self.edge_paged,
+                                    int8=self.edge_int8, layers=self.n_cloud,
+                                    qctx=self._edge_qctx)
 
     def _draft_steps(self, k, edge_blocks, draft_blocks, embed, tail, cur,
                      e_cache, d_cache, pos, bt, pick
@@ -234,27 +234,20 @@ class _SpecDraftMixin:
                             d_cache, slots, bt_rows, plens) -> None:
         """Recompute the draft suffix K/V of live slots from committed
         prefix state: re-run the committed rows through the edge prefix
-        over a throwaway scratch cache (the real edge cache already holds
-        these positions and must not be touched), then replay the
-        boundary blob through the draft suffix like a draft prefill.
-        The reference's scratch is a dense cache; the port's is a paged
-        one with its own identity block table (an INT8 scratch calibrates
-        its scales from the rows).  Draft contents only steer the
-        acceptance rate, never the committed stream."""
+        over a throwaway dense scratch cache (the real edge cache already
+        holds these positions and must not be touched; the reference's
+        scratch is dense too, INT8 at its fixed scales for an INT8 edge),
+        then replay the boundary blob through the draft suffix like a
+        draft prefill.  Draft contents only steer the acceptance rate,
+        never the committed stream."""
         cfg = self.cfg
         n, s = toks.shape
-        per = -(-s // self.page_size)
-        scratch = TF.init_cache(cfg, n, s, layers=self.n_edge, paged=True,
-                                quantized=self.edge_int8,
-                                page_size=self.page_size,
-                                num_pages=n * per + 1, device=self.device)
-        sbt = torch.arange(1, n * per + 1, dtype=torch.int32,
-                           device=self.device).reshape(n, per)
         x = ML.embed(embed, toks).to(cfg.dtype)
+        scratch = TF.init_cache(cfg, n, self.max_len, layers=self.n_edge,
+                                quantized=self.edge_int8, device=self.device)
         h, _ = TF.run_blocks(edge_blocks, x, cfg, rope=self._rope(),
                              cache=scratch, cache_index=0,
-                             qctx=self._edge_qctx, block_tables=sbt,
-                             calibrate_kv=self.edge_int8, kv_lengths=plens)
+                             qctx=self._edge_qctx)
         real = (torch.arange(s, device=h.device)[None, :, None]
                 < plens[:, None, None])
         blob, qp = self._quant_boundary(h, torch.where(real, h, h[:, :1]))
@@ -295,7 +288,8 @@ class _SpecDraftMixin:
                 self.edge_blocks, self.draft_blocks, self.embed,
                 torch.tensor(toks, device=self.device), self._draft_cache,
                 torch.tensor(gslots, device=self.device).long(),
-                self._pool.rows(gslots, bucket),
+                None if self._pool is None
+                else self._pool.rows(gslots, bucket),
                 torch.tensor(plens, device=self.device))
         self.stats.draft_rebuilds += 1
 
@@ -408,10 +402,6 @@ class _SpecDraftMixin:
         INT8 scales the cloud never computed (every buffered row is a
         real token, so ``lens`` spans them all)."""
         self.phase_calls["resync"] += 1
-        group = _paged_prefill_view(cache, h.shape[0])
-        _, group = TF.run_blocks(blocks, h.to(self.cfg.dtype), self.cfg,
-                                 rope=self._rope(), cache=group,
-                                 cache_index=0, block_tables=bt_rows,
-                                 calibrate_kv=self.cloud_int8,
-                                 kv_lengths=lens)
-        _paged_prefill_merge(cache, group, slots)
+        self._prefill_blocks(blocks, h.to(self.cfg.dtype), cache, slots,
+                             bt_rows, lens, paged=True, int8=self.cloud_int8,
+                             layers=self.n_cloud)

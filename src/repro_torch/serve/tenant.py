@@ -102,6 +102,8 @@ class _CutRuntime(_SpecDraftMixin, _SplitPhases):
         self.max_len = fleet.max_len
         self.page_size = fleet.page_size
         self.a_bits = fleet.a_bits
+        # the fleet shares one page pool: its caches are always paged
+        self.edge_paged = self.cloud_paged = True
         self.edge_int8 = fleet.edge_int8
         self.cloud_int8 = fleet.cloud_int8
         self._edge_qctx = fleet._edge_qctx

@@ -1175,3 +1175,108 @@ def test_int8_fleet_on_card_streams_equal_solo(cuda):
                for v in run["outs"].values() for o in v)
     assert run["pages_back"] and run["finite"]
     assert sum(run["faults"][cs.FLEET_STORM].values()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vector", [False, True], ids=["scalar", "vector"])
+def test_dense_int8_attention_and_q_chunk_on_card_match_cpu(cuda, vector):
+    """One attention layer over a dense INT8 cache on the card against
+    the CPU: a 16-token write from a scalar index, or 4 tokens a row
+    from per-row positions with one row partly and one wholly past the
+    cache's end (dropped: those rows keep their bytes).  Outputs within
+    ``chip_smoke.PARITY_TOL`` of the largest, the lattice at most one step
+    off and equal in 99.9 % of the written elements; ``_sdpa`` with
+    ``q_chunk`` equal to the whole block's within 1e-5, on the card and
+    against the CPU."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, n_layers=1, dtype=torch.float32)
+    p = TT.init_lm(cfg, torch.Generator().manual_seed(6), device="cpu")
+    attn = tree_map(lambda t: t[0], p["blocks"]["attn"])
+    g = torch.Generator().manual_seed(7)
+    t_len, s = 24, (4 if vector else 16)
+    idx = torch.tensor([3, t_len - 2, t_len + 1]) if vector \
+        else torch.tensor(4)
+    x = torch.randn(3, s, cfg.d_model, generator=g)
+    scales = (0.04 + 0.02 * torch.rand(cfg.n_kv, generator=g),
+              0.04 + 0.02 * torch.rand(cfg.n_kv, generator=g))
+    cache0 = {k: torch.randint(-127, 128, (3, t_len, cfg.n_kv, cfg.hd),
+                               generator=g, dtype=torch.int8)
+              for k in ("k", "v")}
+    rope = TLY.rope_table(t_len, cfg.hd)
+    out, caches = {}, {}
+    for dev in ("cuda", "cpu"):
+        c = {k: v.to(dev) for k, v in cache0.items()}
+        out[dev], _ = TLY.attention(
+            tree_map(lambda t: t.to(dev), attn), x.to(dev),
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            rope=tuple(t.to(dev) for t in rope), kv_cache=c,
+            cache_index=idx.to(dev),
+            kv_scales=tuple(t.to(dev) for t in scales))
+        caches[dev] = {k: v.cpu() for k, v in c.items()}
+    tol = cs.PARITY_TOL * max(float(out["cpu"].abs().max()), 1.0)
+    assert float((out["cuda"].cpu() - out["cpu"]).abs().max()) <= tol
+    written = ([(0, 3, 7), (1, t_len - 2, t_len)] if vector
+               else [(r, 4, 20) for r in range(3)])
+    for k in ("k", "v"):
+        d = torch.cat([(caches["cuda"][k][r, a:b].int()
+                        - caches["cpu"][k][r, a:b].int()).abs().flatten()
+                       for r, a, b in written])
+        assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.999
+        if vector:
+            assert torch.equal(caches["cuda"][k][2], cache0[k][2])
+            assert torch.equal(caches["cuda"][k][1, :t_len - 2],
+                               cache0[k][1, :t_len - 2])
+    q, kk, v = (torch.randn(2, n, 4, 16, generator=g)
+                for n in (32, 40, 40))
+    whole = TLY._sdpa(q.cuda(), kk.cuda(), v.cuda(), causal=True,
+                      q_offset=8)
+    chunked = TLY._sdpa(q.cuda(), kk.cuda(), v.cuda(), causal=True,
+                        q_offset=8, q_chunk=8)
+    torch.testing.assert_close(chunked, whole, atol=1e-5, rtol=0)
+    torch.testing.assert_close(
+        chunked.cpu(), TLY._sdpa(q, kk, v, causal=True, q_offset=8,
+                                 q_chunk=8), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_dense_engines_on_card_match_cpu(cuda):
+    """``chip_smoke._dense_parity`` (the check the script's
+    ``path_parity_dense`` runs) on a 3-layer SMOKE model: the dense
+    lossless engine's and the seed path's streams on the card equal to
+    the CPU's or a near-tie at the first divergence (teacher-forced by
+    the cacheless forward), the seed path's wire bytes equal, the dense
+    INT8 default's decisions held to the CPU's up to the first tie."""
+    cfg = dataclasses.replace(CFG, n_layers=3, dtype=torch.float32)
+    res = _chip_smoke()._dense_parity(cfg)
+    assert res["int8_divergence"]["noise"] <= _chip_smoke().INT8_NOISE_TOL
+    assert res["attention"]["vector"]["lattice_equal_share"] >= 0.999
+    assert res["seed_wire_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_dense_paths_launch_no_paged_or_int8_kernel(cuda):
+    """The dense collaborative engine (serial and ``spec_k=2``), the dense
+    cloud-only engine, the seed path and the LM's ``CollaborativeEngine``
+    on the card: every kernel's launch count, set to 0 before and read
+    after, stays 0 (B1 reads only pages, B4 serves no LM path)."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, n_layers=3, dtype=torch.float32)
+    params = TT.init_lm(cfg, torch.Generator(device="cuda").manual_seed(8),
+                        device="cuda")
+    prompts = [np.random.RandomState(70 + i).randint(0, cfg.vocab, 12)
+               .astype(np.int32) for i in range(3)]
+    dense = dict(edge_paged=False, cloud_paged=False, device="cuda",
+                 max_len=32, cut_layer=1)
+    cs._reset_launch_counts()
+    for k in (1, 2):
+        eng = TE.CollaborativeServingEngine(params, cfg, spec_k=k, **dense)
+        assert len(eng.generate(prompts, max_new_tokens=4)[0]) == 4
+    eng.generate_recompute(prompts, max_new_tokens=3)
+    TE.ServingEngine(params, cfg, max_len=32, device="cuda").generate(
+        prompts, max_new_tokens=4)
+    model = TT.make_segments(params, cfg, seq=12)
+    y, rec = TC.CollaborativeEngine(model, "blk1/ffn", device="cuda").infer(
+        torch.tensor(np.stack(prompts), device="cuda"))
+    assert bool(torch.isfinite(y).all())
+    torch.cuda.synchronize()
+    assert cs._launch_counts() == dict.fromkeys(cs._launch_counts(), 0)

@@ -502,7 +502,7 @@ def test_generate_rejects_a_sampling_list_of_another_length(params):
 
 def test_cloud_only_engine_refuses_sampling(params):
     eng = TE.ServingEngine(params, TCFG, max_batch=2, max_len=64,
-                           page_size=PAGE, device="cpu")
+                           paged=True, page_size=PAGE, device="cpu")
     with pytest.raises(ValueError, match="cloud-only baseline is greedy"):
         eng.generate(_prompts((6,), 1), max_new_tokens=2, sampling=SP)
     # temperature 0 is greedy, which the baseline serves

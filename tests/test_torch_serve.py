@@ -151,14 +151,15 @@ def test_int8_wire_bytes_and_first_tokens_match(params, reference, cut):
 
 
 def test_cloud_only_paged_fp_streams_identical(params, reference):
-    t = TE.ServingEngine(params[1], TCFG, max_len=48, device="cpu")
+    t = TE.ServingEngine(params[1], TCFG, max_len=48, paged=True,
+                         device="cpu")
     assert t.generate(_prompts(3), max_new_tokens=6) == \
         reference["cloud"]["outs"]
 
 
 def test_cloud_only_int8_pages_first_tokens_match(params, reference):
-    t = TE.ServingEngine(params[1], TCFG, max_len=48, int8_kv=True,
-                         device="cpu")
+    t = TE.ServingEngine(params[1], TCFG, max_len=48, paged=True,
+                         int8_kv=True, device="cpu")
     got = t.generate(_prompts(3), max_new_tokens=6)
     assert [g[0] for g in got] == \
         [w[0] for w in reference["cloud_int8"]["outs"]]
@@ -200,21 +201,24 @@ def test_cli_runs_collaborative_on_cpu(capsys):
 
 def test_unported_options_raise(params):
     """Only the options still unported raise (``spec_k > 1``, ``mesh``,
-    ``sampling=``, ``policy``, ``demand_paged``, ``pressure`` and
-    ``admission`` are ported; their parity tests are in
-    ``test_torch_spec.py``, ``test_torch_sharded.py``,
-    ``test_torch_sampling.py``, ``test_torch_adaptive.py`` and
-    ``test_torch_overload.py``; a mesh with a data axis and the dense
-    cache layouts are not)."""
+    ``sampling=``, ``policy``, ``demand_paged``, ``pressure``,
+    ``admission`` and the dense cache layouts are ported; their parity
+    tests are in ``test_torch_spec.py``, ``test_torch_sharded.py``,
+    ``test_torch_sampling.py``, ``test_torch_adaptive.py``,
+    ``test_torch_overload.py`` and ``test_torch_dense_serve.py``; a
+    mesh with a data axis and a dense cloud cache on a tensor-parallel
+    mesh are not)."""
     _, tp = params
-    for kw, item in ((dict(mesh=make_serve_mesh(model=2, data=2,
-                                                device="cpu")), "A16"),
-                     (dict(edge_paged=False), "A5")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(mesh=make_serve_mesh(model=2, data=2, device="cpu")),
+               dict(mesh=make_serve_mesh(model=2, device="cpu"),
+                    cloud_paged=False)):
+        with pytest.raises(NotImplementedError, match="A16"):
             TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0,
                                           device="cpu", **kw)
     for kw in (dict(policy="auto"), dict(demand_paged=True),
-               dict(admission="deadline")):
+               dict(admission="deadline"), dict(edge_paged=False),
+               dict(cloud_paged=False),
+               dict(edge_paged=False, cloud_paged=False)):
         TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0, device="cpu",
                                       **kw)
     eng = TE.CollaborativeServingEngine(tp, TCFG, cut_layer=0, spec_k=2,

@@ -466,8 +466,8 @@ def test_int8_default_counts_bytes_and_pages_match_reference(params,
 @pytest.mark.parametrize("tp", [1, 2, 4])
 def test_cloud_only_streams_match_reference(params, reference, tp, int8):
     eng = TE.ServingEngine(params[1], TCFG, max_batch=2, max_len=64,
-                           page_size=8, int8_kv=int8, mesh=_mesh(tp),
-                           device="cpu")
+                           paged=True, page_size=8, int8_kv=int8,
+                           mesh=_mesh(tp), device="cpu")
     for seed in (0, 1):
         assert eng.generate(_prompts(seed), max_new_tokens=6) == \
             reference[f"cloud_int8{int8}_s{seed}"]
