@@ -14,7 +14,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     card: ``paged_flash_mq`` at the shapes the main path
                     gives it (decode, prefill, speculative verify, the
                     resilient engine's resync replay, the fleet's
-                    verify with rows on the dump page) and at
+                    verify with rows on the dump page), at
+                    qwen3-moe's group of 8 (decode on the split kernel,
+                    a ``spec_k=4`` verify and a prefill on the
+                    tensor-core kernel) and at
                     a 4,096-position decode, its tensor-parallel form
                     ``paged_flash_mq_sharded`` at the same int8 shapes
                     split over 2 and 4 shards of the one card (per-shard
@@ -79,9 +82,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     the rounds' greedy framing plus the f32 draft rows.
 8. ``tp_path``    — the same engine, weights and traffic with the cloud
                     tensor-parallel over ``make_serve_mesh(model=2)`` on
-                    the one card, serially and with ``spec_k=4`` (three
-                    timed repeats each, a profile of the serial run),
-                    then ``model=4`` serially once: tokens/s, launches,
+                    the one card, serially (three timed repeats and a
+                    profile) and with ``spec_k=4`` (one run), then
+                    ``model=4`` serially once: tokens/s, launches,
                     sharded calls, wire bytes, peak memory; the launch
                     counts and the serial wire bytes are asserted.
 9. ``adaptive_path`` — the online control loop on the same weights at
@@ -153,6 +156,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     index, ``_sdpa``'s ``q_chunk``, the dense lossless
                     and seed streams, the dense INT8 decisions).  Every
                     kernel's launches over (a)-(e) read and asserted 0.
+10e. ``moe_path`` — qwen3-moe-30b-a3b at its published width (bf16,
+                    128 experts, top 8; seeded random weights drawn on
+                    the card a layer at a time) on the main path's
+                    traffic, after deepseek-7b's weights are released:
+                    (a) the collaborative engine at cut 2, all 48
+                    layers, three timed runs (wire bytes by formula,
+                    B1's split and tensor-core launches as the schedule
+                    implies, no B4 launch: asserted; tokens/s, peak
+                    memory, a profile window), (b) the cloud-only engine
+                    over bf16 pages, (c) ``spec_k=4`` at 12 of the 48
+                    layers (the verify's 32 rows a kv head on the
+                    tensor-core kernel, asserted), then
+                    ``path_parity_moe``: a 3-layer full-width f32 model
+                    on the card and the CPU — ``moe`` at a 4-row decode
+                    and a 512-row prefill that overflows capacity
+                    (routing and drops equal up to gate near-ties,
+                    outputs within ``MOE_TOL``, two card runs bit
+                    identical) and the engines' streams and decisions
+                    up to near-ties.  Device memory is back under 1 GB
+                    after the phase (asserted).
 11. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
@@ -206,7 +229,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (each row with its
 ``cnn_path_launches``, ``adaptive_path_launches``,
 ``overload_path_launches``, ``resilient_path_launches``,
-``fleet_path_launches`` and ``dense_path_launches``), the
+``fleet_path_launches``, ``dense_path_launches`` and
+``moe_path_launches``), the
 ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
@@ -216,6 +240,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -586,6 +611,22 @@ def phase_kernels() -> list:
         "phi3_medium_gqa_prefill_int8", b=4, s=128, n_heads=40, n_kv=10,
         hd=128, page=16, lengths=[128, 100, 128, 77], q_start=[0] * 4,
         page_dtype=torch.int8, scales=True, seed=4, copies=8))
+    # qwen3-moe-30b-a3b's attention: 32 query heads over 4 kv heads (a
+    # group of 8), hd 128 — decode stacks 8 rows on the split kernel,
+    # a spec_k=4 verify 32 and a prefill 1,024 on the tensor-core kernel
+    cases.append(_paged_case(
+        "qwen3moe_decode_int8", b=4, s=1, n_heads=32, n_kv=4, hd=128,
+        page=16, lengths=lengths_dec,
+        q_start=[max(n - 1, 0) for n in lengths_dec],
+        page_dtype=torch.int8, scales=True, seed=9, copies=24))
+    cases.append(_paged_case(
+        "qwen3moe_verify_int8", b=4, s=4, n_heads=32, n_kv=4, hd=128,
+        page=16, lengths=lengths_ver, q_start=[n - 4 for n in lengths_ver],
+        page_dtype=torch.int8, scales=True, seed=10, copies=24))
+    cases.append(_paged_case(
+        "qwen3moe_prefill_int8", b=4, s=128, n_heads=32, n_kv=4, hd=128,
+        page=16, lengths=[128, 100, 128, 77], q_start=[0] * 4,
+        page_dtype=torch.int8, scales=True, seed=11, copies=8))
     # a long context: the split kernel's chunk grows past one tile, the
     # tiled kernel walks 128 tiles in series; 4 pool copies of 134 MB
     lengths_long = [4096, 3000, 4096, 1024]
@@ -2077,9 +2118,10 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
     its head and its INT8 page pool split over ``make_serve_mesh(model=
     tp)`` shards of the one card (the edge unchanged on the card):
     serially at tp = 2 (three timed repeats, then a profile window),
-    with ``spec_k=4`` at tp = 2 (three repeats), serially at tp = 4
-    (one).  Every cloud layer's attention is one sharded call of tp
-    kernel launches, so ``paged_flash_mq`` launches (prefill calls +
+    with ``spec_k=4`` at tp = 2 (one run: three until the MoE path came
+    in, for the script's time limit), serially at tp = 4 (one).  Every
+    cloud layer's attention is one sharded call of tp kernel launches,
+    so ``paged_flash_mq`` launches (prefill calls +
     steps) x (edge layers + tp x cloud layers) times serially — 2,880 at
     tp = 2 and 4,800 at tp = 4 for this traffic, against 1,920 at
     tp = 1 — and ``prefill calls x (layers + tp x cloud layers) + rounds
@@ -2095,7 +2137,7 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
     prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
     n_layers = cfg.n_layers
     out = {}
-    for tag, tp, k, reps in (("serial_tp2", 2, 1, 3), ("spec_tp2", 2, 4, 3),
+    for tag, tp, k, reps in (("serial_tp2", 2, 1, 3), ("spec_tp2", 2, 4, 1),
                              ("serial_tp4", 4, 1, 1)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3483,7 +3525,10 @@ def phase_fleet_path(params, cfg, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-DENSE_REPEATS = 3          # timed runs of each engine, in turns
+# timed runs of each engine of (a) and (c), in turns: one each since the
+# MoE path came in (the script's time limit), three before
+DENSE_REPEATS = 1
+SEGMENT_REPEATS = 3        # (e)'s timed infers a batch
 SEED_PROMPTS, SEED_NEW = 4, 8
 # the seed path's first token against the incremental engine's (a 16-bit
 # lattice on both, fp dense caches): their prefill logits may differ by
@@ -3757,7 +3802,7 @@ def phase_dense_path(params, cfg, *, device="cuda", parity=True) -> dict:
         x = torch.tensor(np.stack(prompts[:b]), device=device)
         ceng.infer(x)                                   # warm-up
         _reset_launch_counts()
-        recs = [ceng.infer(x) for _ in range(DENSE_REPEATS)]
+        recs = [ceng.infer(x) for _ in range(SEGMENT_REPEATS)]
         _sync(device)
         _add_launches(launches, _launch_counts())
         y, rec = recs[-1]
@@ -3949,6 +3994,386 @@ def _dense_parity(cfg=None, *, card="cuda") -> dict:
          d_model=cfg.d_model, dtype="float32", tol=PARITY_TOL,
          int8_noise_tol=INT8_NOISE_TOL, seconds=time.perf_counter() - t0,
          **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 10e: a mixture-of-experts LM (qwen3-moe-30b-a3b)
+# ---------------------------------------------------------------------------
+
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_CUT = 2
+MOE_REPEATS = 3             # timed runs of the serial engine
+# spec_k=4 runs 12 of the 48 layers: its draft suffix holds the whole
+# stack on the edge's f32 lattice (120 GB at 48 layers, 29.9 GB at 12)
+MOE_SPEC_LAYERS = 12
+MOE_PARITY_LAYERS = 3
+# card vs CPU, f32: moe's output within this share of its largest |value|
+# (GEMMs summed in another order); two experts' CPU gates closer than
+# GATE_TIE are a near-tie, where the card may route the other way
+MOE_TOL = 1e-4
+GATE_TIE = 1e-5
+# device memory the phase may leave allocated beyond what it found
+MOE_LEFT_GB = 1.0
+
+
+def _serial_wire_bytes(st, *, n_req, plen, max_new, d_model) -> int:
+    """The wire bytes a serial collaborative run owes, by the reference's
+    framing: each request's prompt blob (one byte an element, a scale
+    and zero point a row) and its first token, each decode step's live
+    rows' deltas and tokens, and a header each way per prefill call and
+    per step."""
+    from repro_torch.serve.transport import _MSG_BYTES, _QP_BYTES, _TOK_BYTES
+    return (n_req * (plen * d_model + _QP_BYTES + _TOK_BYTES)
+            + n_req * (max_new - 1) * (d_model + _QP_BYTES + _TOK_BYTES)
+            + 2 * _MSG_BYTES * (st.prefill_calls + st.decode_steps))
+
+
+_INT8_ROWS = ("int8_matmul", "int8_matmul_wgmma", "int8_pack_weight",
+              "int8_matmul_splitk")
+
+
+def _moe_run(e, prompts, max_new, vocab, what, *, want_split, want_tc,
+             on_card, launches) -> dict:
+    """One counted run of ``prompts`` through engine ``e``: streams
+    well formed, B1's split and tensor-core launches each equal to what
+    the schedule implies (``want_split(stats)``, ``want_tc(stats)``) and
+    above 0, no B4 kernel launched; the counts added to ``launches``."""
+    r = _counted(e, lambda: e.generate(prompts, max_new_tokens=max_new))
+    st = r["stats"]
+    if not all(len(o) == max_new and all(0 <= t < vocab for t in o)
+               for o in r["out"]):
+        raise AssertionError(f"moe path {what}: malformed streams")
+    split = r["launches"] - r["tc_launches"]
+    if on_card and not (split == want_split(st) > 0
+                        and r["tc_launches"] == want_tc(st) > 0):
+        raise AssertionError(
+            f"moe path {what}: B1 split / tensor-core launches {split} / "
+            f"{r['tc_launches']}, expected {want_split(st)} / "
+            f"{want_tc(st)}")
+    if any(r["by_row"][n] for n in _INT8_ROWS):
+        raise AssertionError(f"moe path {what}: a B4 kernel was launched: "
+                             f"{r['by_row']}")
+    _add_launches(launches, r["by_row"])
+    r["split_launches"] = split
+    return r
+
+
+def phase_moe_path(cfg=None, *, device="cuda", parity=True) -> dict:
+    """qwen3-moe-30b-a3b ``FULL`` at its published width (bf16, seeded
+    random weights drawn on the card one layer at a time), the main
+    path's traffic: 8 requests x 32 new tokens after 128-token prompts,
+    4 slots, INT8 paged KV (page 16), 250 KB/s at 20 ms.
+
+    (a) ``CollaborativeServingEngine`` at cut 2, all 48 layers, timed
+        ``MOE_REPEATS`` times: 256 tokens, wire bytes equal to the
+        serial framing at d_model 2048, B1's split launches (every layer
+        once a decode step: 8 query rows a kv head) and tensor-core
+        launches (every layer once a prefill call) as the schedule
+        implies, no B4 launch (asserted); tokens/s (median), peak
+        memory, and one profile window (the device's idle share);
+    (b) the cloud-only ``ServingEngine`` over bf16 pages, 48 layers, one
+        timed run: tokens/s and launches (asserted as in (a));
+    (c) ``spec_k=4`` at cut 2 on the first ``MOE_SPEC_LAYERS`` layers
+        (the full stack freed first): acceptance, rounds, tokens/s, and
+        the verify's launches — 4 rows x 8 heads a kv head go to the
+        tensor-core kernel, once per cloud layer a round (asserted, with
+        every other launch the rounds imply);
+    (d) ``path_parity_moe`` (``_moe_parity``), after every weight of
+        (a)-(c) is released (device memory within ``MOE_LEFT_GB`` of
+        what the phase found, asserted).
+
+    ``cfg`` (a smaller LM with ``moe``) and ``device="cpu"`` with
+    ``parity=False`` rehearse (a)-(c) on the CPU."""
+    import dataclasses
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.core.costmodel import Channel
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import (CollaborativeServingEngine,
+                                          ServingEngine)
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_arch(MOE_ARCH).full
+    on_card = torch.device(device).type == "cuda"
+    n_req, plen, max_new, cut, k = 8, 128, 32, MOE_CUT, 4
+    max_len = plen + max_new + 24
+    channel = Channel.from_kbps(250.0, rtt_ms=20.0)
+    prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
+    launches = {}
+    found = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    _sync(device)
+    res = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+               dtype=str(cfg.dtype), cut=cut, requests=n_req, slots=4,
+               prompt_len=plen, max_new=max_new,
+               param_count=cfg.param_count(),
+               init_s=time.perf_counter() - t0,
+               weights_gb=(torch.cuda.memory_allocated() / 1e9 - found
+                           if on_card else None))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    n_layers = cfg.n_layers
+
+    def run(e, what, **kw):
+        return _moe_run(e, prompts, max_new, cfg.vocab, what,
+                        on_card=on_card, launches=launches, **kw)
+
+    def per_step(st):
+        return n_layers * st.decode_steps
+
+    def per_prefill(st):
+        return n_layers * st.prefill_calls
+
+    # (a) the serial collaborative engine at full depth
+    t0 = time.perf_counter()
+    eng = CollaborativeServingEngine(params, cfg, cut_layer=cut,
+                                     channel=channel, max_len=max_len,
+                                     device=device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    eng.generate(prompts[:1], max_new_tokens=2)            # warm-up
+    runs = [run(eng, "(a)", want_split=per_step, want_tc=per_prefill)
+            for _ in range(MOE_REPEATS)]
+    st = runs[0]["stats"]
+    want = _serial_wire_bytes(st, n_req=n_req, plen=plen, max_new=max_new,
+                              d_model=cfg.d_model)
+    for r in runs:
+        if r["stats"].transmitted_bytes != want:
+            raise AssertionError(f"moe path (a): wire bytes "
+                                 f"{r['stats'].transmitted_bytes} != "
+                                 f"{want} by formula")
+    res["serial"] = dict(
+        **_runs_summary(runs), setup_s=setup_s,
+        edge_blocks=eng.n_edge, cloud_blocks=eng.n_cloud,
+        prefill_calls=st.prefill_calls, decode_steps=st.decode_steps,
+        split_launches=runs[0]["split_launches"],
+        tc_launches=runs[0]["tc_launches"],
+        transmitted_bytes=st.transmitted_bytes, wire_formula=want,
+        channel_s=st.channel_latency_s,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if on_card else None),
+        first_output=runs[0]["out"][0])
+    if on_card:
+        prof = profile_window(
+            lambda: eng.generate(prompts, max_new_tokens=max_new),
+            statistics.median(r["wall"] for r in runs))
+        res["serial"]["profile"] = prof
+        res["serial"]["device_idle_share"] = prof["device_idle_share"]
+    serial_outs = runs[0]["out"]
+    del eng, runs
+    _free(device)
+
+    # (b) cloud-only over bf16 pages
+    cloud = ServingEngine(params, cfg, max_len=max_len, paged=True,
+                          device=device)
+    cloud.generate(prompts[:1], max_new_tokens=2)
+    r = run(cloud, "(b)", want_split=per_step, want_tc=per_prefill)
+    res["cloud_only"] = dict(
+        **_runs_summary([r]), pages=str(cfg.dtype),
+        prefill_calls=r["stats"].prefill_calls,
+        decode_steps=r["stats"].decode_steps,
+        split_launches=r["split_launches"], tc_launches=r["tc_launches"],
+        first_output=r["out"][0],
+        **_agreement(r["out"], serial_outs))
+    del cloud, r
+    _free(device)
+
+    # (c) spec_k=4 on the first MOE_SPEC_LAYERS layers; the full stack
+    # goes first (the draft suffix's f32 lattice would not fit beside it)
+    scfg = dataclasses.replace(cfg, n_layers=min(MOE_SPEC_LAYERS,
+                                                 cfg.n_layers))
+    sparams = dict(params, blocks=tree_map(
+        lambda v: v[:scfg.n_layers].clone(), params["blocks"]))
+    del params
+    _free(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    spec = CollaborativeServingEngine(sparams, scfg, cut_layer=cut,
+                                      channel=channel, max_len=max_len,
+                                      spec_k=k, device=device)
+    spec.generate(prompts[:1], max_new_tokens=2)
+    n_s, n_cloud = scfg.n_layers, spec.n_cloud
+    with _PhaseLaunches(spec, ("_verify_impl",)) as pl:
+        r = run(spec, "(c)",
+                want_split=lambda st: st.spec_rounds * k * n_s,
+                want_tc=lambda st: (st.prefill_calls * (n_s + n_cloud)
+                                    + st.spec_rounds * n_cloud))
+    st = r["stats"]
+    if on_card and not (pl.tc["_verify_impl"] == st.spec_rounds * n_cloud
+                        > 0 and pl.split["_verify_impl"] == 0):
+        raise AssertionError(f"moe path (c): the verify launched the "
+                             f"tensor-core kernel {pl.tc['_verify_impl']} "
+                             f"times and the split kernel "
+                             f"{pl.split['_verify_impl']}, expected "
+                             f"{st.spec_rounds * n_cloud} and 0")
+    res["spec_k4"] = dict(
+        **_runs_summary([r]), layers=n_s, reduced=dict(
+            n_layers=[cfg.n_layers, n_s]),
+        prefill_calls=st.prefill_calls, spec_rounds=st.spec_rounds,
+        acceptance=st.acceptance_rate(),
+        draft_hits=st.draft_hits, drafted_tokens=st.drafted_tokens,
+        tokens_per_round=st.decode_tokens / max(st.spec_rounds, 1),
+        split_launches=r["split_launches"], tc_launches=r["tc_launches"],
+        verify_calls=pl.calls["_verify_impl"],
+        verify_tc_launches=pl.tc["_verify_impl"],
+        transmitted_bytes=st.transmitted_bytes,
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if on_card else None))
+    del spec, sparams, r, pl
+    gc.collect()
+    _free(device)
+    left = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    if on_card and left - found >= MOE_LEFT_GB:
+        raise AssertionError(f"moe path: {left} GB still allocated after "
+                             f"the phase, {found} GB before it")
+    res["mem_found_gb"], res["mem_left_gb"] = found, left
+    res["launches"] = launches
+    res["phase_s_before_parity"] = time.perf_counter() - t_phase
+    emit("moe_path", **res)
+    res["parity"] = _moe_parity() if parity else None
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("moe_path_done", phase_s=res["phase_s"])
+    return res
+
+
+def _moe_layer_check(p_card, p_cpu, cfg, rows, card, seed) -> dict:
+    """Layer 0's ``moe`` on ``rows`` = (B, S) random unit-RMS inputs, on
+    the card (twice) and on the CPU: the two card runs bit-identical;
+    the expert indices equal except where the CPU's gates of the two
+    choices lie within ``GATE_TIE`` (raises on any other difference);
+    without such a tie the dropped (token, k) pairs equal and the
+    outputs within ``MOE_TOL`` of the CPU's largest |value| (with one,
+    over the rows whose routing and drops agree)."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.models import layers as ML
+    mp_card = tree_map(lambda v: v[0], p_card["blocks"]["moe"])
+    mp_cpu = tree_map(lambda v: v[0], p_cpu["blocks"]["moe"])
+    n_e, top_k = cfg.moe.n_experts, cfg.moe.top_k
+    kw = dict(top_k=top_k, capacity_factor=cfg.moe.capacity_factor)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(tuple(rows) + (cfg.d_model,), generator=g,
+                    dtype=torch.float32)
+    y_cpu, aux_cpu = ML.moe(mp_cpu, x, **kw)
+    y1, aux1 = ML.moe(mp_card, x.to(card), **kw)
+    y2, _ = ML.moe(mp_card, x.to(card), **kw)
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"moe at {rows}: two card runs differ")
+    xt = x.reshape(-1, cfg.d_model)
+    t = xt.shape[0]
+    gates = torch.softmax(torch.matmul(xt, mp_cpu["router"]["w"]), -1)
+    _, i_cpu, _ = ML._route(mp_cpu["router"], xt, n_e, top_k)
+    _, i_card, _ = ML._route(mp_card["router"], xt.to(card), n_e, top_k)
+    i_card = i_card.cpu()
+    cap = ML.moe_capacity(t, top_k, n_e, cfg.moe.capacity_factor)
+    drop_cpu = ML.moe_dispatch(i_cpu, n_e, cap)["pair_slot"] < 0
+    drop_card = ML.moe_dispatch(i_card, n_e, cap)["pair_slot"].cpu() < 0
+    differ = (i_cpu != i_card).any(-1)
+    worst = 0.0
+    for row in differ.nonzero().flatten().tolist():
+        at = (i_cpu[row] != i_card[row]).nonzero().flatten()
+        gap = float((gates[row, i_cpu[row, at]]
+                     - gates[row, i_card[row, at]]).abs().max())
+        worst = max(worst, gap)
+        if gap > GATE_TIE:
+            raise AssertionError(f"moe at {rows}: token {row} routed to "
+                                 f"{i_card[row].tolist()} on the card, "
+                                 f"{i_cpu[row].tolist()} on the CPU, gates "
+                                 f"{gap} apart")
+    keep = ~differ & (drop_cpu == drop_card).all(-1)
+    if not differ.any() and not keep.all():
+        raise AssertionError(f"moe at {rows}: dropped pairs differ with "
+                             f"equal routing")
+    y_c, y_g = y_cpu.reshape(t, -1), y1.cpu().reshape(t, -1)
+    err = float((y_g[keep] - y_c[keep]).abs().max()) if keep.any() else 0.0
+    scale = float(y_c.abs().max())
+    tol = MOE_TOL * max(scale, 1.0)
+    if not err <= tol:
+        raise AssertionError(f"moe at {rows}: card vs CPU max abs err "
+                             f"{err} > {tol}")
+    return dict(rows=t, capacity=cap, dropped_pairs=int(drop_cpu.sum()),
+                tokens_all_dropped=int(drop_cpu.all(-1).sum()),
+                max_abs_err=err, max_abs=scale, tol=tol,
+                aux_diff=abs(float(aux1) - float(aux_cpu)),
+                gate_near_ties=int(differ.sum()), worst_tie_gap=worst,
+                rows_compared=int(keep.sum()), repeat_identical=True)
+
+
+def _moe_parity(cfg=None, *, card="cuda") -> dict:
+    """``path_parity_moe``: qwen3-moe-30b-a3b at full width (d 2048, 128
+    experts, top 8) and ``MOE_PARITY_LAYERS`` layers, in f32, the same
+    weights on the card and on the CPU (the CPU port is held to the JAX
+    package by ``tests/test_torch_moe_*.py``):
+
+    * ``moe`` at a 4-row decode and a 512-row prefill (capacity 40 over
+      a mean load of 32: pairs drop, asserted at full width) by
+      ``_moe_layer_check``: card runs bit-identical, routing and drops
+      equal up to gate near-ties, outputs within ``MOE_TOL``;
+    * the collaborative engine at cut 0, lossless: the card's stream
+      against the CPU's, up to near-ties of the teacher-forced logits
+      (``_near_ties``);
+    * the INT8 default: the card's decisions against the CPU's up to the
+      first tie within the devices' noise (``_int8_divergence``,
+      ``INT8_NOISE_TOL``).
+
+    ``cfg`` (a smaller MoE LM) and ``card="cpu"`` rehearse the checks."""
+    import dataclasses
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import CollaborativeServingEngine
+
+    t0 = time.perf_counter()
+    if torch.device(card).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    full = cfg is None
+    cfg = cfg or dataclasses.replace(get_arch(MOE_ARCH).full,
+                                     n_layers=MOE_PARITY_LAYERS,
+                                     dtype=torch.float32)
+    p_card = init_lm(cfg, torch.Generator(device=card).manual_seed(2),
+                     device=card)
+    p_cpu = tree_map(lambda v: v.cpu(), p_card)
+    layer = {name: _moe_layer_check(p_card, p_cpu, cfg, rows, card, seed)
+             for name, rows, seed in (("decode", (4, 1), 0),
+                                      ("prefill", (4, 128), 1))}
+    if full and not layer["prefill"]["dropped_pairs"]:
+        raise AssertionError("moe parity: the 512-row prefill dropped no "
+                             "pair")
+    prompts = [np.random.RandomState(7 + i).randint(0, cfg.vocab, n)
+               .astype(np.int32) for i, n in enumerate((20, 17, 33, 9))]
+    lossless = dict(a_bits=None, edge_int8=False, cloud_int8=False)
+    runs, logs = {}, {}
+    for tag, kw in (("lossless", lossless), ("int8", {})):
+        for dev, p in ((card, p_card), ("cpu", p_cpu)):
+            eng = CollaborativeServingEngine(p, cfg, device=dev,
+                                             cut_layer=0, max_len=64, **kw)
+            with _Decisions() as d:
+                runs[tag, dev] = eng.generate(prompts, max_new_tokens=6)
+            logs[tag, dev] = d.log
+            del eng
+    ties = _near_ties(runs["lossless", card], runs["lossless", "cpu"],
+                      prompts, p_card, p_cpu, cfg)
+    div = _int8_divergence(logs["int8", card], logs["int8", "cpu"])
+    res = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+               dtype="float32", moe=layer, moe_tol=MOE_TOL,
+               gate_tie=GATE_TIE, requests=len(prompts),
+               lossless_identical=runs["lossless", card]
+               == runs["lossless", "cpu"],
+               lossless_near_ties=ties, parity_tol=PARITY_TOL,
+               int8_identical=runs["int8", card] == runs["int8", "cpu"],
+               int8_first_token_equal=[
+                   a[0] == b[0] for a, b in zip(runs["int8", card],
+                                                runs["int8", "cpu"])],
+               int8_divergence=div, int8_noise_tol=INT8_NOISE_TOL,
+               seconds=time.perf_counter() - t0)
+    emit("path_parity_moe", **res)
+    del p_card, p_cpu
+    _free(card)
     return res
 
 
@@ -4912,13 +5337,15 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "cnn_path", "control",
-                                       "dense"),
+                                       "dense", "moe"),
                     help="run only the kernel phases (a quick check of a "
                          "kernel change), only the CNN path, only the "
                          "build, the control loop, overload, resilient "
                          "and fleet phases and their 3-layer card-vs-CPU "
-                         "cases, or only the build and the dense path; "
-                         "prints no result line")
+                         "cases, only the build and the dense path, or "
+                         "only the build, the attention kernel cases and "
+                         "the MoE path with its parity; prints no result "
+                         "line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4958,6 +5385,10 @@ def main(argv=None) -> int:
         _resilient_parity()
         _fleet_parity()
         return 0
+    if args.only == "moe":
+        phase_kernels()
+        phase_moe_path()
+        return 0
     kres = phase_kernels()
     sres = phase_sharded_kernels()
     ires, pres = phase_int8_kernels()
@@ -4988,6 +5419,7 @@ def main(argv=None) -> int:
     dense_res = phase_dense_path(params, cfg)
     del params
     torch.cuda.empty_cache()
+    moe_res = phase_moe_path()
     phase_path_parity()
     cnn_launches = phase_cnn_path()
     # each summary row is the kernel's main-path shape: the decode step
@@ -5111,6 +5543,8 @@ def main(argv=None) -> int:
         r["fleet_path_launches"] = fleet_res["launches"][r["name"]]
         # read from the counters; phase_dense_path failed if any was not 0
         r["dense_path_launches"] = dense_res["launches"][r["name"]]
+        # the MoE path's (a)-(c) runs together; B4's rows must read 0
+        r["moe_path_launches"] = moe_res["launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Each config module defines ``FULL`` (the published numbers) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as in
 ``repro.configs``; the port's registry holds the archs whose path is
-ported: the LMs of the serving path, the paper's CNNs (their ``SMOKE``
+ported: the LMs of the serving path (dense and mixture-of-experts), the
+paper's CNNs (their ``SMOKE``
 is ``FULL``: the graphs are exact only at the published resolution),
 and the ResNets and ViTs (``family="vision"``, their ``SMOKE`` the
 reference's reduced one)."""
@@ -26,9 +27,11 @@ class ArchSpec:
 
 def _registry() -> Dict[str, ArchSpec]:
     from repro_torch.configs import (alexnet, deepseek_7b, deit_b,
-                                     googlenet, phi3_medium_14b, resnet18,
+                                     googlenet, grok1_314b, phi3_medium_14b,
+                                     qwen3_moe_30b_a3b, resnet18,
                                      resnet152, vgg16, vit_h14, vit_s16)
     return {s.arch_id: s for s in (deepseek_7b.SPEC, phi3_medium_14b.SPEC,
+                                   qwen3_moe_30b_a3b.SPEC, grok1_314b.SPEC,
                                    alexnet.SPEC, vgg16.SPEC,
                                    googlenet.SPEC, resnet18.SPEC,
                                    resnet152.SPEC, vit_s16.SPEC,

@@ -11,7 +11,7 @@ with one entry per dim, an axis name or ``None``, as a JAX
   ``model``; ``wo`` (attention and MLP) by rows, so each block costs two
   all-reduces of its partial outputs (Megatron);
 * ``lm_head`` splits by vocab columns when ``vocab % tp == 0``;
-* norms and ``embed`` are replicated;
+* norms, ``embed`` and the whole ``moe`` group are replicated;
 * a stacked ``[L, ...]`` leading layer axis is never split.
 
 Every rule is divisibility-guarded: a dim that does not divide its mesh
@@ -30,7 +30,11 @@ the same guard as ``paged_flash_mq_sharded``'s fallback and
 parameter rule splits its vocab rows: a row split would turn every
 lookup into a masked lookup plus an all-reduce, and the collaborative
 engine's edge owns the embedding anyway (the reference replicates it
-there too).
+there too).  The ``moe`` group stays whole on the first device where
+the reference's rule splits the experts' FFN dim over ``model``: the
+F-split form of ``moe`` (the reference's ``moe_sharded``) is not
+ported, and a column-split router would leave ``moe`` a list of shards
+it cannot take.
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ def spec_for_param(path_str: str, shape: Tuple[int, ...], mesh, *,
         dims = dims[1:]
     whole = tuple(lead + [None] * len(dims))
     tp = int(mesh.shape["model"]) if "model" in mesh.axis_names else 1
-    if (len(dims) != 2 or toks[-1] == "emb"
+    if (len(dims) != 2 or toks[-1] == "emb" or "moe" in toks
             or ("attn" in toks and not (n_kv is not None
                                         and attention_splits(n_kv, tp)))):
         return whole

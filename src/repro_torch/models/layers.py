@@ -21,8 +21,10 @@ alone, so the vision models call them inside ``full_f32``.
 ``groupnorm`` and ``layernorm`` write out the reference's arithmetic
 (biased variance, moments of a bf16 tensor taken in f32 as ``jnp.mean``
 and ``jnp.var`` take them).  ``attention`` has the LM's paged and dense
-KV cache forms and the no-cache form of ViT and of the LM's forward;
-MoE comes with a later slice.
+KV cache forms and the no-cache form of ViT and of the LM's forward.
+``moe`` is the reference's token-choice top-k mixture of experts (the
+static-capacity sort layout), with its ties, capacity drops and combine
+order kept (see ``moe``).
 
 Tensor parallelism: ``attention`` and ``swiglu`` take either one
 parameter dict or a list with one per tensor-parallel shard
@@ -225,6 +227,37 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv: int,
             "wk": dense_init(gen, d_model, n_kv * hd, **kw),
             "wv": dense_init(gen, d_model, n_kv * hd, **kw),
             "wo": dense_init(gen, n_heads * hd, d_model, **kw)}
+
+
+def _expert_init(gen, shape, fan_in: int, dtype, device,
+                 layers: Optional[int]) -> torch.Tensor:
+    """An expert leaf ``shape`` (``[E, a, b]``), stacked ``[L, ...]``
+    where ``layers`` is given and drawn one layer at a time: a full-size
+    stacked expert leaf is tens of GB, and drawing it whole in f32 first
+    would need twice that again."""
+    if layers is None:
+        return _fan_in_init(gen, shape, fan_in, dtype, device)
+    out = torch.empty((layers,) + tuple(shape), dtype=dtype, device=device)
+    for i in range(layers):
+        out[i] = _fan_in_init(gen, shape, fan_in, dtype, device)
+    return out
+
+
+def moe_init(gen, d_model: int, d_ff: int, n_experts: int, *, dtype,
+             device, layers: Optional[int] = None) -> Params:
+    """The reference's MoE tree: ``router: {"w": [D, E]}``, ``wi``/``wg``
+    ``[E, D, F]`` and ``wo`` ``[E, F, D]`` (each with a leading ``[L]``
+    axis where ``layers`` is given); normal × 1/√D for the router and
+    ``wi``/``wg``, × 1/√F for ``wo``."""
+    kw = dict(dtype=dtype, device=device)
+    return {"router": dense_init(gen, d_model, n_experts, layers=layers,
+                                 **kw),
+            "wi": _expert_init(gen, (n_experts, d_model, d_ff), d_model,
+                               layers=layers, **kw),
+            "wg": _expert_init(gen, (n_experts, d_model, d_ff), d_model,
+                               layers=layers, **kw),
+            "wo": _expert_init(gen, (n_experts, d_ff, d_model), d_ff,
+                               layers=layers, **kw)}
 
 
 def mlp_init(gen, d_model: int, d_ff: int, *, bias: bool = True, dtype,
@@ -435,6 +468,132 @@ def swiglu(p: Sharded, x: torch.Tensor, *,
         g = F.silu(dense(sp["wg"], xs, qctx=qctx, name=f"{name}/wg"))
         parts.append(dense(sp["wo"], h * g, qctx=qctx, name=f"{name}/wo"))
     return all_reduce_sum(parts)[0]
+
+
+# -- mixture of experts ------------------------------------------------------
+
+
+def _route(router: Params, xt: torch.Tensor, n_e: int, top_k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token-choice routing of ``xt`` [T, D] → (gates [T, K] renormalized
+    over the top ``top_k``, expert indices [T, K], the Switch balance
+    loss).  Logits in the promoted dtype of ``xt`` and the router (no
+    ``QuantCtx``: the reference multiplies by ``router["w"]`` as it
+    is), softmax in f32.  Ties go to the lower expert index, as
+    ``lax.top_k`` breaks them: the first ``top_k`` of a stable
+    descending sort (``torch.topk`` promises no order among ties)."""
+    w = router["w"]
+    dt = torch.promote_types(xt.dtype, w.dtype)
+    logits = torch.matmul(xt.to(dt), w.to(dt))
+    gates = torch.softmax(logits.float(), dim=-1)                 # [T, E]
+    gate_s, idx_s = torch.sort(gates, dim=-1, descending=True, stable=True)
+    gate_k, idx_k = gate_s[:, :top_k], idx_s[:, :top_k]
+    gate_k = gate_k / torch.clamp(gate_k.sum(-1, keepdim=True), min=1e-9)
+    density = F.one_hot(idx_k[:, 0], n_e).float().mean(0)
+    aux = n_e * torch.sum(density * gates.mean(0))
+    return gate_k, idx_k, aux
+
+
+def moe_capacity(t: int, top_k: int, n_e: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert for a call over ``t`` rows: the reference's
+    Python expression (``t`` counts every row the call sees, idle slots
+    and bucket padding included); the floor keeps small decode batches
+    from dropping on routing collisions."""
+    return max(int(capacity_factor * t * top_k / n_e), min(t * top_k, 32))
+
+
+def moe_dispatch(idx_k: torch.Tensor, n_e: int,
+                 cap: int) -> Dict[str, torch.Tensor]:
+    """The reference's static-capacity layout of a routing ``idx_k``
+    [T, K]: the (token, k) pairs sorted by expert with a stable sort,
+    each expert's first ``cap`` of them in its ``cap`` slots.
+
+    * ``tok_for_slot`` [E·C] — the token each slot gathers (a slot past
+      its expert's group points where the reference's clipped index
+      does; no token reads it back);
+    * ``slot`` [E, C] — each slot's place in the sorted pairs,
+      clipped to the last as the reference clips it;
+    * ``order`` [T·K] — the stable sort;
+    * ``pair_slot`` [T, K] — each pair's slot ``e·C + rank``, or -1
+      where the pair fell past its expert's capacity (dropped).
+
+    Group starts come from a ``searchsorted`` over the sorted experts:
+    no atomics and no host sync."""
+    t, k = idx_k.shape
+    dev = idx_k.device
+    flat_e = idx_k.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order].contiguous()
+    experts = torch.arange(n_e, device=dev, dtype=sorted_e.dtype)
+    starts = torch.searchsorted(sorted_e, experts)
+    col = torch.arange(cap, device=dev)
+    slot = torch.clamp(starts[:, None] + col[None, :], 0, t * k - 1)
+    tok_for_slot = (order // k)[slot.reshape(-1)]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * k, device=dev)
+    rank = rank - starts[flat_e]
+    pair_slot = torch.where(rank < cap, flat_e * cap + rank,
+                            -1).reshape(t, k)
+    return dict(tok_for_slot=tok_for_slot, order=order,
+                pair_slot=pair_slot, slot=slot)
+
+
+def _grouped_ffn(xt: torch.Tensor, gate_k: torch.Tensor,
+                 idx_k: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+                 wo: torch.Tensor, *, top_k: int,
+                 capacity_factor: float) -> torch.Tensor:
+    """Sort-based static-capacity grouped SwiGLU FFN, the reference's
+    layout: each expert's first C pairs gathered into a dense
+    [E, C, D] buffer, three batched products, gated, and combined per
+    token.  The combine sums a token's contributions in slot order
+    (expert-ascending) from zero in the output dtype, one
+    elementwise add per k, as the reference's scatter-add into zeros
+    runs on the CPU; no atomics, so a run repeats bit for bit on the
+    card.  A dropped pair adds nothing (the reference gives its slot a
+    gate of 0; here no token reads a slot past its expert's group)."""
+    t, d = xt.shape
+    n_e = wi.shape[0]
+    cap = moe_capacity(t, top_k, n_e, capacity_factor)
+    plan = moe_dispatch(idx_k, n_e, cap)
+    gate_slot = gate_k.reshape(-1)[plan["order"][plan["slot"]]].to(xt.dtype)
+    xe = xt[plan["tok_for_slot"]].reshape(n_e, cap, d)           # [E, C, D]
+    dt = torch.promote_types(xe.dtype, wi.dtype)
+    xe = xe.to(dt)
+    h = torch.bmm(xe, wi.to(dt))
+    g = F.silu(torch.bmm(xe, wg.to(dt)))
+    ye = torch.bmm(h * g, wo.to(dt))                              # [E, C, D']
+    ye = (ye * gate_slot[..., None]).reshape(n_e * cap, -1)
+    # each token's pairs in slot order (its experts ascending), the
+    # dropped ones (-1) first
+    slots = torch.sort(plan["pair_slot"], dim=1).values
+    parts = torch.where((slots >= 0)[..., None], ye[slots.clamp(min=0)], 0.0)
+    out = torch.zeros_like(parts[:, 0])
+    for j in range(top_k):
+        out = out + parts[:, j]
+    return out
+
+
+def moe(p: Params, x: torch.Tensor, *, top_k: int,
+        capacity_factor: float = 1.25, qctx: Optional[QuantCtx] = None,
+        name: str = "moe") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k mixture of experts, x [B, S, D] → ([B, S, D],
+    the balance loss as a 0-dim f32 tensor).  The rows are routed
+    together in ``B·S`` order, so at prefill a prompt's capacity drops
+    depend on the other prompts of its call, as in the reference.  On
+    the edge ``qctx`` puts ``wi``/``wg``/``wo`` on the weight lattice
+    (the router and the expert inputs stay as they are, as in the
+    reference).  The whole group runs on its weights' device: it is
+    never split over tensor-parallel shards (``launch.shardings``)."""
+    b, s, d = x.shape
+    n_e = p["router"]["w"].shape[-1]
+    xt = x.reshape(b * s, d)
+    gate_k, idx_k, aux = _route(p["router"], xt, n_e, top_k)
+    yt = _grouped_ffn(xt, gate_k, idx_k, qw(qctx, f"{name}/wi", p["wi"]),
+                      qw(qctx, f"{name}/wg", p["wg"]),
+                      qw(qctx, f"{name}/wo", p["wo"]), top_k=top_k,
+                      capacity_factor=capacity_factor)
+    return yt.reshape(b, s, -1), aux
 
 
 def mlp(p: Params, x: torch.Tensor, *, act: str = "gelu",

@@ -1,16 +1,18 @@
 """Decoder-only LM (llama-arch) of the port: RoPE + GQA attention +
-SwiGLU blocks, RMSNorm, untied LM head.
+SwiGLU or mixture-of-experts blocks, RMSNorm, untied LM head.
 
-Counterpart of the dense-LM part of ``repro.models.transformer``.  Block
-parameters stay stacked (every leaf carries a leading ``[L]`` axis) so
-the weight bridge is a plain map and block sub-ranges are views; the
-JAX ``lax.scan`` over layers becomes a Python loop that writes each
-layer's slice of the KV cache in place.  The cache layouts are the
-reference's: dense (fp, or INT8 with per-(layer, kv-head) scales) and
-paged (fp or INT8 pages with per-slot scales); ``forward`` is the
-cacheless causal pass, and ``make_segments`` the block-granular view
-the paper's ``CollaborativeEngine`` splits.  MoE blocks (and their aux
-loss, 0 here) come with a later slice, as does ``lm_loss``.
+Counterpart of ``repro.models.transformer``.  Block parameters stay
+stacked (every leaf carries a leading ``[L]`` axis) so the weight
+bridge is a plain map and block sub-ranges are views; the JAX
+``lax.scan`` over layers becomes a Python loop that writes each layer's
+slice of the KV cache in place.  An MoE block (``LMConfig.moe``) holds
+``"moe"`` where a dense block holds ``"mlp"``, the reference's tree;
+``forward`` returns the blocks' summed balance loss beside the logits.
+The cache layouts are the reference's: dense (fp, or INT8 with
+per-(layer, kv-head) scales) and paged (fp or INT8 pages with per-slot
+scales); ``forward`` is the cacheless causal pass, and ``make_segments``
+the block-granular view the paper's ``CollaborativeEngine`` splits.
+``lm_loss`` is not ported yet (ROADMAP A17).
 """
 from __future__ import annotations
 
@@ -33,6 +35,13 @@ Cache = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str
     n_layers: int
@@ -42,6 +51,7 @@ class LMConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+    moe: Optional[MoESpec] = None
     rope_base: float = 10000.0
     dtype: torch.dtype = torch.float32      # params + compute dtype
     q_chunk: Optional[int] = None   # query-block tiling of long prefills
@@ -50,10 +60,35 @@ class LMConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
-    def block_param_count(self) -> int:
+    def _attn_param_count(self) -> int:
         d, hd = self.d_model, self.hd
-        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv * hd) * 2
-        return attn + 3 * d * self.d_ff + 2 * d
+        return d * (self.n_heads * hd) * 2 + d * (self.n_kv * hd) * 2
+
+    def _ffn_param_count(self, experts: int) -> int:
+        if not self.moe:
+            return 3 * self.d_model * self.d_ff
+        return (experts * 3 * self.d_model * self.d_ff
+                + self.d_model * self.moe.n_experts)
+
+    def block_param_count(self) -> int:
+        e = self.moe.n_experts if self.moe else 1
+        return self._attn_param_count() + self._ffn_param_count(e) \
+            + 2 * self.d_model
+
+    def block_active_param_count(self) -> int:
+        """A block's parameters one token uses: the routed ``top_k``
+        experts of an MoE block (the router whole)."""
+        e = self.moe.top_k if self.moe else 1
+        return self._attn_param_count() + self._ffn_param_count(e) \
+            + 2 * self.d_model
+
+    def param_count(self) -> int:
+        return (self.vocab * self.d_model * 2 + self.d_model
+                + self.n_layers * self.block_param_count())
+
+    def active_param_count(self) -> int:
+        return (self.vocab * self.d_model * 2 + self.d_model
+                + self.n_layers * self.block_active_param_count())
 
 
 # ---------------------------------------------------------------------------
@@ -65,7 +100,8 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
             device: DeviceLike = None) -> Params:
     """Random weights with the reference's distributions (normal ×
     1/√fan_in, unit norms, no biases; embedding normal × 0.02), drawn
-    from ``generator`` — which must live on ``device``."""
+    from ``generator`` — which must live on ``device``.  An MoE block's
+    expert leaves are drawn one layer at a time (``layers.moe_init``)."""
     dev = resolve_device(device)
     d, hd, n = cfg.d_model, cfg.hd, cfg.n_layers
     kw = dict(dtype=cfg.dtype, device=dev)
@@ -77,10 +113,14 @@ def init_lm(cfg: LMConfig, generator: torch.Generator,
                  "wv": L.dense_init(g, d, cfg.n_kv * hd, layers=n, **kw),
                  "wo": L.dense_init(g, cfg.n_heads * hd, d, layers=n, **kw)},
         "ln2": L.norm_init(d, layers=n, **kw),
-        "mlp": {"wi": L.dense_init(g, d, cfg.d_ff, layers=n, **kw),
-                "wg": L.dense_init(g, d, cfg.d_ff, layers=n, **kw),
-                "wo": L.dense_init(g, cfg.d_ff, d, layers=n, **kw)},
     }
+    if cfg.moe:
+        blocks["moe"] = L.moe_init(g, d, cfg.d_ff, cfg.moe.n_experts,
+                                   layers=n, **kw)
+    else:
+        blocks["mlp"] = {"wi": L.dense_init(g, d, cfg.d_ff, layers=n, **kw),
+                         "wg": L.dense_init(g, d, cfg.d_ff, layers=n, **kw),
+                         "wo": L.dense_init(g, cfg.d_ff, d, layers=n, **kw)}
     return {"embed": L.embed_init(g, cfg.vocab, d, **kw),
             "blocks": blocks,
             "final_norm": L.norm_init(d, **kw),
@@ -101,7 +141,9 @@ def block_apply(p: Params, x: torch.Tensor, cfg: LMConfig, *,
                 kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 calibrate_kv: bool = False,
                 kv_lengths: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+                ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """One block → (x, the cache, the block's balance loss: the MoE
+    block's, a 0-dim f32 zero for a dense one)."""
     h, new_cache = L.attention(
         p["attn"], L.rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, rope=rope, kv_cache=cache, cache_index=cache_index,
@@ -109,23 +151,35 @@ def block_apply(p: Params, x: torch.Tensor, cfg: LMConfig, *,
         kv_lengths=kv_lengths, kv_scales=kv_scales, q_chunk=cfg.q_chunk)
     x = x + h
     z = L.rmsnorm(p["ln2"], x)
-    return x + L.swiglu(p["mlp"], z, qctx=qctx), new_cache
+    if cfg.moe:
+        h, aux = L.moe(p["moe"], z, top_k=cfg.moe.top_k,
+                       capacity_factor=cfg.moe.capacity_factor, qctx=qctx)
+    else:
+        h = L.swiglu(p["mlp"], z, qctx=qctx)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, new_cache, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
             qctx: Optional[QuantCtx] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward, no cache → (logits [B, S, V], aux loss).  The
-    aux loss is the MoE blocks' balance term, 0 for these dense blocks
-    (a 0-dim f32 tensor, as the reference returns it)."""
+    aux loss is the sum of the MoE blocks' balance terms, layer by layer
+    from 0 (a 0-dim f32 tensor, as the reference's scan carries it; 0
+    for dense blocks)."""
     s = tokens.shape[1]
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     rope = L.rope_table(s, cfg.hd, base=cfg.rope_base, dtype=cfg.dtype,
                         device=tokens.device)
-    x, _ = run_blocks(params["blocks"], x, cfg, rope=rope, qctx=qctx)
+    blocks = params["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(_n_layers(blocks)):
+        x, _, a = block_apply(tree_map(lambda v: v[i], blocks), x, cfg,
+                              rope=rope, qctx=qctx)
+        aux = aux + a
     x = L.rmsnorm(params["final_norm"], x)
     logits = L.dense(params["lm_head"], x, name="lm_head")
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +265,12 @@ def run_blocks(blocks: Params, x: torch.Tensor, cfg: LMConfig, *,
         scales = None
         if isinstance(c, dict) and "k" in c and "k_scale" in c:
             scales = (c.pop("k_scale"), c.pop("v_scale"))
-        x, new_c = block_apply(bp, x, cfg, rope=rope, cache=c,
-                               cache_index=cache_index,
-                               block_tables=block_tables, qctx=qctx,
-                               kv_scales=scales, calibrate_kv=calibrate_kv,
-                               kv_lengths=kv_lengths)
+        x, new_c, _ = block_apply(bp, x, cfg, rope=rope, cache=c,
+                                  cache_index=cache_index,
+                                  block_tables=block_tables, qctx=qctx,
+                                  kv_scales=scales,
+                                  calibrate_kv=calibrate_kv,
+                                  kv_lengths=kv_lengths)
         if calibrate_kv:
             for full, new in zip(L.shards(cache), L.shards(new_c)):
                 if "k_scale" in full:
@@ -324,15 +379,20 @@ def make_graph(cfg: LMConfig, *, batch: int, seq: int) -> LayerGraph:
     attn_proj_flops = 2 * tok * d * (cfg.n_heads * hd) * 2 \
         + 2 * tok * d * (cfg.n_kv * hd) * 2
     attn_sdpa_flops = 2 * batch * cfg.n_heads * seq * seq * hd * 2
-    ffn_flops = 2 * tok * 3 * d * cfg.d_ff
-    ffn_params = 3 * d * cfg.d_ff
+    if cfg.moe:
+        ffn_flops = 2 * tok * 3 * d * cfg.d_ff * cfg.moe.top_k \
+            * cfg.moe.capacity_factor
+    else:
+        ffn_flops = 2 * tok * 3 * d * cfg.d_ff
+    ffn_params = cfg._ffn_param_count(cfg.moe.n_experts if cfg.moe else 1)
     for i in range(cfg.n_layers):
         a = g.add(f"blk{i}/attn", "attention", [prev], (batch, seq, d),
                   flops=attn_proj_flops + attn_sdpa_flops,
                   param_elems=cfg.block_param_count() - ffn_params - 2 * d)
         add1 = g.add(f"blk{i}/add1", "add", [a, prev], (batch, seq, d))
-        f = g.add(f"blk{i}/ffn", "mlp", [add1], (batch, seq, d),
-                  flops=ffn_flops, param_elems=ffn_params + 2 * d)
+        f = g.add(f"blk{i}/ffn", "moe" if cfg.moe else "mlp", [add1],
+                  (batch, seq, d), flops=ffn_flops,
+                  param_elems=ffn_params + 2 * d)
         prev = g.add(f"blk{i}/add2", "add", [f, add1], (batch, seq, d))
     g.add("lm_head", "dense", [prev], (batch, seq, cfg.vocab),
           flops=2 * tok * d * cfg.vocab, param_elems=d * cfg.vocab + d)

@@ -62,16 +62,25 @@ def _quantize_layers(leaf: torch.Tensor, deploy_qctx) -> torch.Tensor:
     return leaf if out is None else out
 
 
+# the param-dict keys ``layers.dense`` and ``layers.moe`` route through
+# ``QuantCtx.weight``, and the MoE router's ``w``: every floating leaf
+# whose nearest key is one of these carries the INT8 lattice
+_WEIGHT_KEYS = ("w", "wi", "wg", "wo")
+
+
 def _prequantize_blocks(blocks: Dict[str, Any], deploy_qctx,
                         key: str = "") -> Dict[str, Any]:
-    """Stacked block params → the same tree with every dense weight
-    (the ``"w"`` leaves ``layers.dense`` routes through
-    ``QuantCtx.weight``) on the deployment lattice (f32, as fake-quant
-    returns it)."""
+    """Stacked block params → the same tree with every weight leaf on
+    the deployment lattice (f32, as fake-quant returns it), one layer
+    at a time: the dense ``"w"`` leaves, the MoE router's ``w`` (the
+    runtime never quantizes it, so the edge routes on the lattice the
+    bank gives it, as the reference's bank does) and the raw expert
+    leaves ``wi``/``wg``/``wo`` (``[E, D, F]`` a layer, ranges per last
+    axis over E·D)."""
     if isinstance(blocks, dict):
         return {k: _prequantize_blocks(v, deploy_qctx, k)
                 for k, v in blocks.items()}
-    if key == "w":
+    if key in _WEIGHT_KEYS and blocks.is_floating_point():
         return _quantize_layers(blocks, deploy_qctx)
     return blocks
 

@@ -13,7 +13,8 @@ per partition (``place_collab_engine`` / ``place_cloud_engine``):
 * **cloud suffix weights** — the role rules of
   ``launch.shardings.spec_for_param``: QKV and FFN-in column-split,
   attention and FFN out-projections row-split, attention only by whole
-  kv-head groups;
+  kv-head groups, an MoE block's ``moe`` group whole on the first
+  device;
 * **lm_head** — vocab column-split when divisible; the shards' logits
   are concatenated in shard order before the argmax;
 * **paged cloud KV pool** (a dense cache only on a one-shard mesh) —

@@ -1280,3 +1280,68 @@ def test_dense_paths_launch_no_paged_or_int8_kernel(cuda):
     assert bool(torch.isfinite(y).all())
     torch.cuda.synchronize()
     assert cs._launch_counts() == dict.fromkeys(cs._launch_counts(), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 4, 128])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_kernel_at_group8_matches_plain(cuda, dtype, s):
+    """qwen3-moe's attention: 32 query heads over 4 kv heads (a group of
+    8), hd 128.  Decode stacks 8 rows a kv head on the split kernel; a
+    ``spec_k=4`` verify (32 rows) and a prefill go to the tensor-core
+    kernel.  Tolerance 1e-4 of max |plain|; the length-0 row is 0."""
+    args = _case(12, dtype=dtype, group=8, s=s, n_kv=4, hd=128)
+    before = PA.paged_flash_mq.launches
+    tc_before = PA.paged_flash_mq.tc_launches
+    out = PA.paged_multiquery_attention(*args)
+    assert PA.paged_flash_mq.launches == before + 1
+    assert PA.paged_flash_mq.tc_launches == tc_before + (s * 8 > 16)
+    want = PA.paged_attention_mq_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(float(want.abs().max()), 1.0)
+    assert float((out - want).abs().max()) <= tol
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_moe_ordered_combine_on_card_is_bit_identical(cuda):
+    """bf16 ``moe`` with pairs past capacity, three times on the card:
+    the per-token combine sums in slot order with no atomics, so the
+    outputs are equal bit for bit; the routing and the drops equal the
+    CPU's on the same inputs."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = TLY.moe_init(g, 256, 128, 32, dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((4, 128, 256), generator=g, device="cuda")
+    x = x.to(torch.bfloat16)
+    outs = [TLY.moe(p, x, top_k=4, capacity_factor=0.75)[0]
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert bool(torch.isfinite(outs[0]).all())
+    xt = x.reshape(-1, 256)
+    _, idx, _ = TLY._route(p["router"], xt, 32, 4)
+    _, idx_cpu, _ = TLY._route(tree_map(lambda v: v.cpu(), p["router"]),
+                               xt.cpu(), 32, 4)
+    cap = TLY.moe_capacity(xt.shape[0], 4, 32, 0.75)
+    drops = TLY.moe_dispatch(idx, 32, cap)["pair_slot"] < 0
+    assert drops.any()
+    if torch.equal(idx.cpu(), idx_cpu):
+        assert torch.equal(drops.cpu(),
+                           TLY.moe_dispatch(idx_cpu, 32, cap)["pair_slot"]
+                           < 0)
+
+
+@pytest.mark.gpu
+def test_moe_on_card_matches_cpu(cuda):
+    """``chip_smoke._moe_parity`` (the script's ``path_parity_moe``) on a
+    3-layer qwen3-moe ``SMOKE`` model in f32: ``moe`` at a 4-row decode
+    and a 512-row prefill (card runs bit-identical, routing and drops
+    equal up to gate near-ties, outputs within ``MOE_TOL``), the
+    lossless engine stream against the CPU's up to near-ties, the INT8
+    decisions up to the first tie within the devices' noise."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").smoke,
+                              n_layers=3)
+    res = cs._moe_parity(cfg)
+    for check in res["moe"].values():
+        assert check["repeat_identical"]
+        assert check["max_abs_err"] <= check["tol"]
