@@ -7,9 +7,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. ``device``     — the card's name and power limit.
 2. ``build``      — compile every hand-written CUDA kernel from
                     ``src/repro_torch/kernels/csrc``, one ``nvcc`` per
-                    source, all started together; each kernel's
-                    registers and spills (``-Xptxas -v``), and opcode
-                    counts of the split-K and wgmma INT8 kernels' SASS.
+                    source, all started together on a thread of their
+                    own; each kernel's registers and spills (``-Xptxas
+                    -v``), and opcode counts of the split-K and wgmma
+                    INT8 kernels' SASS.  Phase 12 (``cnn_path``, which
+                    launches no kernel of the port) runs on the card
+                    while ``nvcc`` compiles; the ``build`` line follows
+                    it.
 3. ``kernels``    — each kernel against its plain PyTorch version on the
                     card: ``paged_flash_mq`` at the shapes the main path
                     gives it (decode, prefill, speculative verify, the
@@ -53,14 +57,16 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     the cloud-only ``ServingEngine`` on the same weights;
                     every kernel's launch count on each run is checked
                     (the tensor-core prefill kernel's among them).
-                    Then one ``torch.profiler`` window of each engine on
-                    the same traffic, after all the timed runs.
+                    Then one ``torch.profiler`` window of the
+                    collaborative engine on the same traffic, after all
+                    the timed runs (the cloud-only engine's: cut for
+                    time, PERF.md §5 keeps its numbers).
 6. ``spec_path``  — the same engine, weights and traffic with speculative
                     draft/verify rounds (``spec_k=4``), full width and
                     depth: tokens/s, rounds, acceptance, wire bytes, and
-                    the launch count the rounds imply; then one
-                    ``torch.profiler`` window of its traffic.  Then,
-                    untimed, where the spec stream first leaves the
+                    the launch count the rounds imply (no profile
+                    window: cut for time, PERF.md §5 keeps AN's).
+                    Then, untimed, where the spec stream first leaves the
                     serial one, with each side's top-2 logit gap there;
                     every first token held to the serial one by its
                     prefill logits (``_index0``: equal in the same
@@ -68,10 +74,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 7. ``sampled_path`` — the same engine, weights and traffic, sampled
                     (``temperature=0.8, top_p=0.9``, request i with seed
                     i), serially and with ``spec_k=4``, each on two fresh
-                    engines (one timed run each, then a profile window):
-                    tokens/s, acceptance, tokens per round, B1 launches
-                    (split and tensor-core; asserted at the greedy paths'
-                    formulas), top device ops.  Checked: the fresh
+                    engines (one timed run each; no profile window, cut
+                    for time): tokens/s, acceptance, tokens per round,
+                    B1 launches (split and tensor-core; asserted at the
+                    greedy paths' formulas).  Checked: the fresh
                     engines' streams identical; a ``temperature=0`` run
                     equal to the greedy main path, entering no sampled
                     phase; serial and spec equal at output index 0
@@ -82,13 +88,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     the rounds' greedy framing plus the f32 draft rows.
 8. ``tp_path``    — the same engine, weights and traffic with the cloud
                     tensor-parallel over ``make_serve_mesh(model=2)`` on
-                    the one card, serially (three timed repeats and a
-                    profile) and with ``spec_k=4`` (one run), then
-                    ``model=4`` serially once: tokens/s, launches,
+                    the one card, serially and with ``spec_k=4``, then
+                    ``model=4`` serially, one timed run each: tokens/s, launches,
                     sharded calls, wire bytes, peak memory; the launch
                     counts and the serial wire bytes are asserted.
 9. ``adaptive_path`` — the online control loop on the same weights at
-                    full width and depth, 16 requests x 32 new tokens:
+                    full width and depth, 8 requests x 32 new tokens:
                     (a) ``policy="auto"`` from cut 14 over a
                     ``DriftingChannel`` (250 KB/s at 20 ms, then 50 KB/s
                     at 100 ms): the predicted single switch to cut 0 on
@@ -151,32 +156,70 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     incremental engine's by prefill logits), (e) the
                     paper's ``CollaborativeEngine`` on the LM's block
                     segments at ``blk14/ffn``, batch 1 and 4, (f) card
-                    against CPU at 3 layers (``path_parity_dense``:
+                    against CPU at 3 layers (``path_parity_dense``, run
+                    by phase 11's process:
                     dense INT8 attention at a scalar and a per-row
                     index, ``_sdpa``'s ``q_chunk``, the dense lossless
                     and seed streams, the dense INT8 decisions).  Every
                     kernel's launches over (a)-(e) read and asserted 0.
+10f. ``train_path`` — training, last on the deepseek-7b weights (it
+                    updates them), inside
+                    ``torch.use_deterministic_algorithms(True,
+                    warn_only=True)``: (a) the reference's train cell at
+                    full width and depth, ``train_4k`` at seq 4096 with
+                    the global batch cut 256 → 4 (accumulation 4 of 1 x
+                    4096), remat, 8-bit AdamW (the rule's pick and the
+                    reference's state shapes asserted), lr 3e-4, one
+                    warm and two timed steps: losses and grad norms
+                    finite, every weight matrix moved and every leaf's
+                    moment non-zero (asserted; a bf16 norm scale of 1.0
+                    need not move at lr 3e-4); step s,
+                    tokens/s, model flops/s against the bf16 peak, peak
+                    memory, a checkpoint's bytes (computed), one more
+                    step under the profiler (device busy, idle share,
+                    top kernels); (b) QAT
+                    through the ``Trainer`` at 2 of the 30 layers (INT8
+                    gradient compression, f32 AdamW, cosine schedule,
+                    accumulation 2, 4 steps), one async checkpoint in a
+                    temporary directory (free disk checked first)
+                    restored by a fresh ``Trainer`` bit for bit
+                    (asserted), its bytes and seconds, fp and
+                    INT8-lattice eval losses; (c) card against CPU at 3
+                    layers, f32: the STE's forward and gradient mask
+                    (equal), a train-cell step (within
+                    ``TRAIN_LOSS_RTOL``, ``2 lr`` and
+                    ``TRAIN_FLIP_SHARE``) and a QAT ``Trainer`` step
+                    (``QAT_LOSS_RTOL``, ``QAT_FLIP_SHARE``: activation
+                    lattice flips), a ``TrainSupervisor`` run with
+                    two worker failures equal to an uninterrupted one
+                    (and whether two runs agree with determinism off).
+                    Every kernel's launches read and asserted 0.
 10e. ``moe_path`` — qwen3-moe-30b-a3b at its published width (bf16,
                     128 experts, top 8; seeded random weights drawn on
                     the card a layer at a time) on the main path's
                     traffic, after deepseek-7b's weights are released:
                     (a) the collaborative engine at cut 2, all 48
-                    layers, three timed runs (wire bytes by formula,
+                    layers, one timed run (wire bytes by formula,
                     B1's split and tensor-core launches as the schedule
                     implies, no B4 launch: asserted; tokens/s, peak
                     memory, a profile window), (b) the cloud-only engine
                     over bf16 pages, (c) ``spec_k=4`` at 12 of the 48
                     layers (the verify's 32 rows a kv head on the
-                    tensor-core kernel, asserted), then
-                    ``path_parity_moe``: a 3-layer full-width f32 model
+                    tensor-core kernel, asserted), and
+                    ``path_parity_moe`` (run by phase 11's process): a
+                    3-layer full-width f32 model
                     on the card and the CPU — ``moe`` at a 4-row decode
                     and a 512-row prefill that overflows capacity
                     (routing and drops equal up to gate near-ties,
                     outputs within ``MOE_TOL``, two card runs bit
                     identical) and the engines' streams and decisions
                     up to near-ties.  Device memory is back under 1 GB
-                    after the phase (asserted).
-11. ``path_parity``— the collaborative engine at full width, 2 layers, f32,
+                    after (a)-(c) (asserted).
+11. ``path_parity``— (with ``path_parity_dense`` and ``path_parity_moe``:
+                    in a process of its own, ``ParityWorker``, from the
+                    end of phase 3 until before phase 10f; its lines
+                    are printed when it is joined)
+                    the collaborative engine at full width, 2 layers, f32,
                     on the card and on the CPU: lossless serial and
                     speculative streams must match the CPU's serial one
                     (or, at a near-tie, the teacher-forced logits), and a
@@ -201,7 +244,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     ``path_parity_fleet``: the four-tenant fleet,
                     lossless, equal to the solo engines on each device,
                     its streams and counters card vs CPU.
-12. ``cnn_path`` — collaborative split inference of the image models
+12. ``cnn_path`` — (run during the build, before phase 3)
+                    collaborative split inference of the image models
                     (``core.collab``): the paper's AlexNet, VGG16 and
                     GoogLeNet, and ResNet-18, ResNet-152, ViT-S/16,
                     DeiT-B and ViT-H/14, at full width and depth (but
@@ -229,8 +273,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 Then a ``{"kernels": [...]}`` summary line (each row with its
 ``cnn_path_launches``, ``adaptive_path_launches``,
 ``overload_path_launches``, ``resilient_path_launches``,
-``fleet_path_launches``, ``dense_path_launches`` and
-``moe_path_launches``), the
+``fleet_path_launches``, ``dense_path_launches``,
+``train_path_launches`` and ``moe_path_launches``), the
 ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
@@ -239,6 +283,7 @@ device is present or the repository's ``src/`` is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -249,6 +294,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -352,22 +398,47 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def start_build():
+    """Start the build on a thread of its own and return its future: every
+    hand-written kernel compiled (``_build.build_all``: one ``nvcc`` per
+    source, all started together), then the SASS reports.  The card is
+    free meanwhile: ``main`` runs the CNN path, which launches no kernel
+    of the port, while ``nvcc`` compiles."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
+
+    def work():
+        t0 = time.perf_counter()
+        logs = _build.build_all()
+        secs = time.perf_counter() - t0
+        return dict(
+            sources=sorted(logs), seconds=secs,
+            ptxas=[f"{name}: {use}" for log in logs.values()
+                   for name, use in _ptxas_report(log)],
+            ptxas_warnings=[ln.strip() for log in logs.values()
+                            for ln in log.splitlines() if "warning" in ln],
+            splitk_sass=_sass_counts(
+                _build._lib_path("int8_matmul"),
+                "int8_matmul_splitk_kernelILi0ELi0ELi1E"),
+            wgmma_sass=_sass_counts(
+                _build._lib_path("int8_matmul_sm90"),
+                "int8_matmul_wgmma_kernelILi0ELi0ELi128E"),
+            wgmma_sass_sizes=_sass_sizes(_build._lib_path("int8_matmul_sm90"),
+                                         "int8_matmul_wgmma_kernel"),
+            reports_s=time.perf_counter() - t0 - secs)
+
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(work)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_build(build) -> None:
+    """Wait for ``start_build``'s future and print its line; a failed
+    ``nvcc`` raises here."""
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    secs = time.perf_counter() - t0
-    emit("build", sources=sorted(logs), seconds=secs,
-         ptxas=[f"{name}: {use}" for log in logs.values()
-                for name, use in _ptxas_report(log)],
-         ptxas_warnings=[ln.strip() for log in logs.values()
-                         for ln in log.splitlines() if "warning" in ln],
-         splitk_sass=_sass_counts(_build._lib_path("int8_matmul"),
-                                  "int8_matmul_splitk_kernelILi0ELi0ELi1E"),
-         wgmma_sass=_sass_counts(_build._lib_path("int8_matmul_sm90"),
-                                 "int8_matmul_wgmma_kernelILi0ELi0ELi128E"),
-         wgmma_sass_sizes=_sass_sizes(_build._lib_path("int8_matmul_sm90"),
-                                      "int8_matmul_wgmma_kernel"))
+    fields = build.result()
+    emit("build", **fields, waited_s=time.perf_counter() - t0)
 
 
 def _ptxas_report(log: str) -> list:
@@ -1555,15 +1626,14 @@ def phase_main_path(params, cfg) -> dict:
          first_token_agree_with_collab=sum(
              a[0] == b[0] for a, b in zip(first["outs"], cfirst["outs"])))
 
-    # the profiler's windows come after every timed run: its host work
-    # and state stay out of the tokens/s above
-    for tag, key, e in (("main_path_profile", "collab", eng),
-                        ("cloud_only_profile", "cloud", cloud)):
-        prof = profile_window(
-            lambda: e.generate(prompts, max_new_tokens=max_new),
-            statistics.median(r["wall"] for r in runs[key]))
-        emit(tag, requests=n_req, max_new=max_new, **prof)
-        res.setdefault("profiles", {})[key] = prof
+    # the profiler's window comes after every timed run: its host work
+    # and state stay out of the tokens/s above.  The cloud-only engine's
+    # window is cut for time (PERF.md §5 keeps its numbers)
+    prof = profile_window(
+        lambda: eng.generate(prompts, max_new_tokens=max_new),
+        statistics.median(r["wall"] for r in runs["collab"]))
+    emit("main_path_profile", requests=n_req, max_new=max_new, **prof)
+    res["profiles"] = {"collab": prof}
     # untimed: the serial decisions, for phase 6's divergence report
     with _CommittedDecisions(eng, "_cloud_decode") as dec, \
             _PrefillGroups(eng) as pg:
@@ -1584,8 +1654,8 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
     """The main path's engine, weights and traffic with ``spec_k=4``:
     each decode step becomes a round of 4 drafted positions on the edge
     and one verify of 4 queries (``paged_flash_mq`` at S = 4) on the
-    cloud.  Three timed repeats; the launch count is the one the code
-    implies: every layer attends once per prefill call on each side plus
+    cloud.  One timed run (the script's time limit); the launch count
+    is the one the code implies: every layer attends once per prefill call on each side plus
     once more in the draft suffix's prefill, and once per drafted
     position on the edge (prefix and draft suffix) plus once per verify
     on the cloud.  Untimed, under ``_CommittedDecisions`` and
@@ -1595,7 +1665,7 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
     from repro_torch.core.costmodel import Channel
     from repro_torch.serve.engine import CollaborativeServingEngine
 
-    n_req, plen, max_new, cut, reps, k = 8, 128, 32, 14, 3, 4
+    n_req, plen, max_new, cut, reps, k = 8, 128, 32, 14, 1, 4
     channel = Channel.from_kbps(250.0, rtt_ms=20.0)
     t0 = time.perf_counter()
     eng = CollaborativeServingEngine(params, cfg, cut_layer=cut,
@@ -1657,13 +1727,8 @@ def phase_spec_path(params, cfg, main_res: dict) -> dict:
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                first_output=first["outs"][0])
     emit("spec_path", **res)
-    # as for the serial path, the profiler's window comes after the
-    # timed runs
-    res["profile"] = profile_window(
-        lambda: eng.generate(prompts, max_new_tokens=max_new),
-        statistics.median(walls))
-    emit("spec_path_profile", requests=n_req, max_new=max_new,
-         **res["profile"])
+    # no profile window here: cut for time (its numbers stay in PERF.md
+    # §5, run AN)
     with _CommittedDecisions(eng, "_verify_impl") as dec, \
             _PrefillGroups(eng) as pg:
         logged = eng.generate(prompts, max_new_tokens=max_new)
@@ -1941,7 +2006,8 @@ def phase_sampled_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
     request at ``temperature=0.8, top_p=0.9`` with seed = its index,
     serially (k = 1) and with ``spec_k=4`` (rejection-sampled verify).
     Each mode runs on two fresh engines, one timed run each (after a
-    warm-up); the second engine then gives a profile window.  B1's
+    warm-up); no profile window (cut for time; PERF.md §5 keeps run
+    AN's).  B1's
     launches must be the greedy paths' formulas: sampling adds no
     attention.  Checks, each raising:
 
@@ -2086,18 +2152,9 @@ def phase_sampled_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
         if k == 1:
             res["temperature0_equals_greedy"] = True
         emit("sampled_path", run=tag, **res)
-        # the profiler's window comes after the timed runs
-        prof = profile_window(
-            lambda: eng.generate(prompts, max_new_tokens=max_new,
-                                 sampling=samps),
-            statistics.median(walls), top=8 if k == 1 else 14)
-        gprof = greedy["profiles"]["collab"] if k == 1 else greedy["profile"]
-        prof["greedy_device_busy_s"] = gprof["device_busy_s"]
-        prof["device_busy_delta_s"] = (prof["device_busy_s"]
-                                       - gprof["device_busy_s"])
-        emit("sampled_path_profile", run=tag, requests=n_req,
-             max_new=max_new, **prof)
-        res.update(outs=a["outs"], profile=prof, prefill=a["prefill"])
+        # no profile windows here: cut for time (their numbers stay in
+        # PERF.md §5, run AN)
+        res.update(outs=a["outs"], prefill=a["prefill"])
         out[tag] = res
         del eng, runs, a, b
     torch.cuda.empty_cache()
@@ -2117,9 +2174,9 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
     """The main path's engine, weights and traffic with the cloud suffix,
     its head and its INT8 page pool split over ``make_serve_mesh(model=
     tp)`` shards of the one card (the edge unchanged on the card):
-    serially at tp = 2 (three timed repeats, then a profile window),
-    with ``spec_k=4`` at tp = 2 (one run: three until the MoE path came
-    in, for the script's time limit), serially at tp = 4 (one).  Every
+    serially at tp = 2, with ``spec_k=4`` at tp = 2 and serially at
+    tp = 4, one timed run each and no profile window (the script's time
+    limit; PERF.md §5 keeps an earlier profile's numbers).  Every
     cloud layer's attention is one sharded call of tp kernel launches,
     so ``paged_flash_mq`` launches (prefill calls +
     steps) x (edge layers + tp x cloud layers) times serially — 2,880 at
@@ -2137,7 +2194,7 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
     prompts = _prompts(n_req, plen, cfg.vocab, seed=0)
     n_layers = cfg.n_layers
     out = {}
-    for tag, tp, k, reps in (("serial_tp2", 2, 1, 3), ("spec_tp2", 2, 4, 1),
+    for tag, tp, k, reps in (("serial_tp2", 2, 1, 1), ("spec_tp2", 2, 4, 1),
                              ("serial_tp4", 4, 1, 1)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2220,11 +2277,6 @@ def phase_tp_path(params, cfg, main_res: dict, spec_res: dict) -> dict:
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    first_output=first["outs"][0])
         emit("tp_path", run=tag, **res)
-        if tag == "serial_tp2":
-            emit("tp_path_profile", run=tag, requests=n_req, max_new=max_new,
-                 **profile_window(
-                     lambda: eng.generate(prompts, max_new_tokens=max_new),
-                     statistics.median(walls)))
         out[tag] = res
         del eng, runs, first
     torch.cuda.empty_cache()
@@ -2282,11 +2334,13 @@ def _sum_rows(*counts) -> dict:
 
 
 def phase_adaptive_path(params, cfg, main_res: dict, *, device="cuda",
-                        cut=14, cut_hi=28, n_req=16, plen=128,
+                        cut=14, cut_hi=28, n_req=8, plen=128,
                         max_new=32) -> dict:
     """The collaborative engine's online control loop at full width and
-    depth, 16 requests x 32 new tokens after 128-token prompts, 4 slots,
-    INT8 paged KV on both sides, page 16.
+    depth, 8 requests x 32 new tokens after 128-token prompts, 4 slots,
+    INT8 paged KV on both sides, page 16 (8 requests for the script's
+    time limit: the scripted policy's second wave is still live when it
+    raises k back).
 
     (a) ``policy="auto"`` from cut ``cut`` over a ``DriftingChannel``
     (250 KB/s at 20 ms, then 50 KB/s at 100 ms from ``DRIFT_AT_S``).
@@ -3998,13 +4052,503 @@ def _dense_parity(cfg=None, *, card="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10f: training (ROADMAP A17)
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPE = "train_4k"
+TRAIN_BATCH = 4            # train_4k's global batch 256, reduced: 4 x 4096
+TRAIN_TIMED_STEPS = 2      # after one warm step
+QAT_LAYERS = 2             # (b): deepseek-7b's widths at 2 of 30 layers
+QAT_SEQ, QAT_BATCH, QAT_ACCUM, QAT_STEPS = 1024, 4, 2, 4
+QAT_LR = 3e-4
+CKPT_DISK_MARGIN = 1.25    # free disk wanted over the checkpoint's bytes
+# (c): a 3-layer f32 model, card against CPU
+TRAIN_PARITY_CFG = dict(name="deepseek-7b-train-parity", n_layers=3,
+                        d_model=512, n_heads=4, n_kv=4, d_ff=1376,
+                        vocab=4096, dtype=torch.float32)
+TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH = 64, 4
+TRAIN_LOSS_RTOL = 1e-4     # f32 loss and grad norm, card vs CPU
+# after a step a parameter moves by about lr · sign(m): an element whose
+# near-zero gradient (or 8-bit moment) lands on the other side moves up
+# to 2 lr away; all others within 1e-6
+TRAIN_MOVE_ATOL = 1e-6
+TRAIN_FLIP_SHARE = 1e-2
+# QAT, card vs CPU: a GEMM's one-ulp difference flips an activation's
+# Eq.(1) rounding now and then (INT8_NOISE_TOL's cause in serving), and
+# the gradient's INT8 compression a lattice step; each flip moves the
+# loss and, through Adam, an element's update by up to lr.  At 3 layers,
+# d 512 the card and the CPU measured 2.8e-4 apart in loss, 1.46 % of
+# the elements off (PERF.md §6)
+QAT_LOSS_RTOL = 1e-3
+QAT_FLIP_SHARE = 5e-2
+SUPERVISOR_STEPS, SUPERVISOR_FAILS = 5, (2, 4)
+
+
+def _all_fields(cfg) -> dict:
+    """Every field of ``cfg``: a ``cfg_override`` that sets the config
+    whole."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def _train_pipe(cell, vocab: int, seed: int):
+    from repro_torch.data.pipeline import TokenPipeline
+    b, s = cell.batch_specs["tokens"].shape
+    return TokenPipeline(vocab=vocab, seq_len=s, batch=b, seed=seed)
+
+
+def _train_batches(cell, vocab: int, steps: int, seed: int = 0) -> list:
+    """``steps`` TokenPipeline batches at the cell's shape, on its device."""
+    from repro_torch.launch.train import batch_for
+    pipe = _train_pipe(cell, vocab, seed)
+    return [batch_for(cell, pipe, i) for i in range(steps)]
+
+
+def _lm_train_cell(cfg, *, device, seq=None, batch=None):
+    from repro_torch.launch.steps import build_cell
+    shape = {k: v for k, v in (("seq_len", seq), ("global_batch", batch))
+             if v is not None}
+    return build_cell("deepseek-7b", TRAIN_SHAPE,
+                      cfg_override=_all_fields(cfg),
+                      shape_override=shape or None, device=device)
+
+
+def _leaf_sample(t: torch.Tensor) -> torch.Tensor:
+    flat = t.reshape(-1)
+    return flat[::max(1, flat.numel() // 65536)].clone()
+
+
+def _tree_bytes(*trees) -> int:
+    from repro_torch.bridge import tree_leaves
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_leaves(tree))
+
+
+def _peak_gb(device):
+    return (torch.cuda.max_memory_allocated() / 1e9
+            if torch.device(device).type == "cuda" else None)
+
+
+def _train_cell_full(params, cfg, *, device, expect_8bit) -> dict:
+    """(a) the reference's train cell on ``params``: 8-bit AdamW where
+    the rule picks it, accumulation by the rule, constant lr; one warm
+    step, then ``TRAIN_TIMED_STEPS`` timed ones."""
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.launch.steps import use_8bit_moments
+    from repro_torch.train.optim import AdamW8bitState
+    cell = _lm_train_cell(cfg, device=device, batch=TRAIN_BATCH)
+    n_params = sum(t.numel() for _, t in tree_flatten(params))
+    want_8bit = use_8bit_moments(n_params)
+    if expect_8bit is not None and want_8bit != expect_8bit:
+        raise AssertionError(f"train cell: the 8-bit rule says {want_8bit} "
+                             f"for {n_params} parameters")
+    opt = cell.init_opt(params)
+    if isinstance(opt, AdamW8bitState) != want_8bit:
+        raise AssertionError("train cell: the optimizer is not the rule's")
+    if want_8bit:             # the reference's state shapes and dtypes
+        for (path, p), mq, ms, vq, vs in zip(
+                tree_flatten(params), *[[t for _, t in tree_flatten(x)]
+                                        for x in opt[1:]]):
+            blk = (tuple(p.shape[:-1]) + (p.shape[-1] // 128,)
+                   if p.shape[-1] % 128 == 0 else ())
+            if (tuple(mq.shape), tuple(vq.shape)) != (tuple(p.shape),) * 2 \
+                    or (tuple(ms.shape), tuple(vs.shape)) != (blk, blk) \
+                    or {mq.dtype, vq.dtype} != {torch.int8} \
+                    or {ms.dtype, vs.dtype} != {torch.float32}:
+                raise AssertionError(f"8-bit state of {path}")
+    batches = _train_batches(cell, cfg.vocab, 1 + TRAIN_TIMED_STEPS)
+    before = {path: _leaf_sample(t) for path, t in tree_flatten(params)}
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        params, opt, m = cell.step_fn(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        _sync(device)
+        steps.append(dict(step=i + 1, loss=loss, grad_norm=gnorm,
+                          seconds=time.perf_counter() - t0))
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train cell step {i + 1}: loss {loss}, "
+                                 f"grad norm {gnorm}")
+    moved = {path: not torch.equal(before[path], _leaf_sample(t))
+             for path, t in tree_flatten(params)}
+    moments = [bool((t != 0).any()) for _, t in tree_flatten(
+        opt.m_q if want_8bit else opt.m)]
+    # a norm scale (1.0) moves by lr·|update|, ~3e-4 a step where the
+    # update is Adam's ±1, under half a bf16 spacing at 1.0 (2^-9): it
+    # need not move in bf16 (it does where an 8-bit ``v`` rounds to 0 and
+    # the update is m / eps); every weight matrix must move, every
+    # leaf's moment be non-zero
+    stuck = [p for (p, t) in tree_flatten(params)
+             if not p.endswith("['scale']") and not moved[p]]
+    if stuck or not all(moments):
+        raise AssertionError(f"train cell: unmoved weights {stuck}, "
+                             f"zero moments {moments}")
+    timed = [s["seconds"] for s in steps[1:]]
+    step_s = statistics.median(timed)
+    tokens = TRAIN_BATCH * cell.batch_specs["tokens"].shape[1]
+    profile = None
+    if torch.device(device).type == "cuda":
+        # one more step under the profiler: device busy and idle share
+        # against the timed steps' median wall
+        profile = profile_window(
+            lambda: cell.step_fn(params, opt, batches[-1]), step_s, top=10)
+    return dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=str(cfg.dtype), n_params=n_params, shape=TRAIN_SHAPE,
+        global_batch=TRAIN_BATCH, seq_len=cell.batch_specs["tokens"].shape[1],
+        reduced={"global_batch": [256, TRAIN_BATCH]},
+        grad_accum=cell.grad_accum, remat=cfg.remat, use_8bit=want_8bit,
+        lr=3e-4, steps=steps, step_s=step_s, step_s_all=timed,
+        tokens_per_s=tokens / step_s, model_flops=cell.model_flops,
+        model_flops_per_s=cell.model_flops / step_s,
+        share_of_bf16_peak=cell.model_flops / step_s / BF16_FLOPS,
+        peak_mem_gb=_peak_gb(device),
+        checkpoint_bytes=_tree_bytes(params, opt),
+        leaves_moved=sum(moved.values()), leaves=len(moved),
+        unmoved_leaves=[p for p, v in moved.items() if not v],
+        profile=profile)
+
+
+def _qat_trainer_full(params, cfg, *, device) -> dict:
+    """(b) QAT through the ``Trainer`` at deepseek-7b's widths and
+    ``QAT_LAYERS`` layers: f32 AdamW, the cosine schedule, INT8 gradient
+    compression, accumulation, one async checkpoint restored bit for bit
+    by a fresh ``Trainer``."""
+    import shutil
+    import tempfile
+    from repro_torch.bridge import tree_leaves, tree_map
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.grads import zeros_like_tree
+    from repro_torch.train.loop import Trainer, TrainerConfig, to_device
+    from repro_torch.train.qat import make_qat_loss
+    cfg2 = dataclasses.replace(cfg, n_layers=QAT_LAYERS)
+    p2 = {k: tree_map((lambda v: v[:QAT_LAYERS].clone()) if k == "blocks"
+                      else torch.clone, v) for k, v in params.items()}
+    n = sum(t.numel() for t in tree_leaves(p2))
+    need = _tree_bytes(p2) + 8 * n          # params + f32 m and v
+    ckdir = tempfile.mkdtemp(prefix="train_path_ckpt_")
+    try:
+        free = shutil.disk_usage(ckdir).free
+        if free < need * CKPT_DISK_MARGIN:
+            raise AssertionError(f"train path (b): {free} B free under "
+                                 f"{ckdir}, the checkpoint needs {need}")
+        qat = make_qat_loss(lambda p, b, q: TF.lm_loss(p, b, cfg2, qctx=q))
+        tcfg = TrainerConfig(n_steps=QAT_STEPS, lr=QAT_LR, warmup=1,
+                             grad_accum=QAT_ACCUM, grad_compress=True,
+                             ckpt_dir=ckdir, ckpt_every=QAT_STEPS,
+                             log_every=0)
+        pipe = TokenPipeline(vocab=cfg.vocab, seq_len=QAT_SEQ,
+                             batch=QAT_BATCH, seed=1)
+        data = [{k: v.reshape(QAT_ACCUM, QAT_BATCH // QAT_ACCUM, -1)
+                 for k, v in pipe.batch_at(i).items()}
+                for i in range(QAT_STEPS)]
+        tr = Trainer(qat, p2, tcfg)
+        t0 = time.perf_counter()
+        hist = tr.fit(iter(data))
+        fit_s = time.perf_counter() - t0
+        for h in hist:
+            if not (math.isfinite(h["loss"]) and math.isfinite(
+                    h["grad_norm"])):
+                raise AssertionError(f"train path (b): step {h}")
+        step_dir = Path(ckdir) / f"step_{QAT_STEPS:09d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        fresh = Trainer(qat, zeros_like_tree(p2), tcfg)
+        t0 = time.perf_counter()
+        restored_at = fresh.maybe_restore()
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        saved = tree_leaves((tr.params, tr.opt))
+        got = tree_leaves((fresh.params, fresh.opt))
+        exact = restored_at == QAT_STEPS and len(saved) == len(got) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(saved, got))
+        if not exact:
+            raise AssertionError("train path (b): the restored state is not "
+                                 "the saved one bit for bit")
+        eval_batch = to_device(pipe.batch_at(10_000), torch.device(device))
+        with torch.no_grad():
+            fp = float(TF.lm_loss(tr.params, eval_batch, cfg2))
+            q8 = float(qat(tr.params, eval_batch))
+        del fresh, saved, got
+        return dict(
+            n_layers=QAT_LAYERS, reduced={"n_layers": [cfg.n_layers,
+                                                       QAT_LAYERS]},
+            seq_len=QAT_SEQ, batch=QAT_BATCH, grad_accum=QAT_ACCUM,
+            n_params=n, history=hist,
+            step_s=statistics.median(h["step_time_s"] for h in hist[1:]),
+            fit_s=fit_s,
+            save_s=fit_s - sum(h["step_time_s"] for h in hist),
+            checkpoint_bytes=ckpt_bytes, restore_s=restore_s,
+            restored_bit_exact=exact, eval_loss_fp=fp,
+            eval_loss_int8_lattice=q8, peak_mem_gb=_peak_gb(device))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _deterministic(on: bool):
+    """``torch.use_deterministic_algorithms(on, warn_only=True)`` inside
+    the block, the caller's setting restored after.  With it on, the
+    embedding's backward (an accumulating ``index_put_``: atomics on
+    CUDA) takes its sort-based deterministic kernel; ops with no
+    deterministic kernel warn (recorded) instead of raising."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def _stepped(a_tree, b_tree, lr, share=TRAIN_FLIP_SHARE) -> dict:
+    """Card against CPU after optimizer steps: the largest difference and
+    the share of elements more than ``TRAIN_MOVE_ATOL`` apart (at most
+    ``share`` of them, none more than ``2 lr``)."""
+    from repro_torch.bridge import tree_leaves
+    worst = off = n = 0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        d = (a.detach().cpu().double() - b.detach().cpu().double()).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        off += int((d > TRAIN_MOVE_ATOL).sum())
+        n += d.numel()
+    return dict(max_abs_diff=worst, share_off=off / n,
+                ok=worst <= 2 * lr + TRAIN_MOVE_ATOL and off <= share * n)
+
+
+def _lattice_share(a_tree, b_tree) -> float:
+    from repro_torch.bridge import tree_leaves
+    off = n = 0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        off += int((a.cpu() != b.cpu()).sum())
+        n += a.numel()
+    return off / n
+
+
+def _supervised(cell, params, vocab, *, fail_at, ckdir) -> tuple:
+    """A ``TrainSupervisor`` run of the train cell from ``params`` (a
+    copy; the 8-bit state fresh), ``WorkerFailure`` raised once at each
+    step in ``fail_at`` → (final state, history)."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.distributed.ft import TrainSupervisor, WorkerFailure
+    from repro_torch.launch.train import batch_for
+    from repro_torch.train.optim import adamw8bit_init
+    pipe = _train_pipe(cell, vocab, seed=2)
+    fired = set()
+
+    def step_fn(state, step):
+        if step in fail_at and step not in fired:
+            fired.add(step)
+            raise WorkerFailure(f"worker lost at step {step}")
+        p, o, m = cell.step_fn(state["params"], state["opt"],
+                               batch_for(cell, pipe, step))
+        return {"params": p, "opt": o}, {"loss": float(m["loss"])}
+
+    p = tree_map(torch.clone, params)
+    return TrainSupervisor(ckdir, ckpt_every=1).run(
+        {"params": p, "opt": adamw8bit_init(p)}, step_fn, SUPERVISOR_STEPS)
+
+
+def _equal_trees(a, b) -> bool:
+    from repro_torch.bridge import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _train_parity(cfg=None, *, card="cuda") -> dict:
+    """(c) card against CPU on a 3-layer f32 model with the same seeded
+    weights: the STE's forward and gradient mask, one train-cell step
+    (8-bit AdamW, accumulation 4), one QAT ``Trainer`` step (f32 AdamW,
+    compression, accumulation 2), and on the card a supervised run with
+    two worker failures against an uninterrupted one (after reporting
+    whether two uninterrupted runs agree with determinism off)."""
+    import shutil
+    import tempfile
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.core.quant import QuantParams, compute_qparams, \
+        fake_quant
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import batch_for
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.loop import Trainer, TrainerConfig, to_device
+    from repro_torch.train.optim import adamw8bit_init
+    from repro_torch.train.qat import make_qat_loss
+    cfg = cfg or dataclasses.replace(get_arch("deepseek-7b").full,
+                                     **TRAIN_PARITY_CFG)
+    t_phase = time.perf_counter()
+    p_cpu = TF.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_card = tree_map(lambda t: t.to(card, copy=True), p_cpu)
+    res = {"cfg": dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
+                       vocab=cfg.vocab, dtype=str(cfg.dtype))}
+
+    # the STE: forward bit for bit, gradient mask equal
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(64, cfg.d_model, generator=g) * 3
+    ct = torch.randn(64, cfg.d_model, generator=g)
+    ste = {}
+    for axis in (None, 1):
+        qp = compute_qparams(x * 0.7, axis=axis)    # x saturates in places
+        outs = []
+        for dev in ("cpu", card):
+            xd = x.to(dev, copy=True).requires_grad_()
+            qd = QuantParams(scale=qp.scale.to(dev),
+                             zero_point=qp.zero_point.to(dev), axis=axis)
+            y = fake_quant(xd, qd)
+            y.backward(ct.to(dev))
+            outs.append((y.detach().cpu(), xd.grad.cpu()))
+        (y0, g0), (y1, g1) = outs
+        ste[f"axis_{axis}"] = dict(
+            forward_equal=torch.equal(y0, y1),
+            mask_equal=torch.equal(g0 != 0, g1 != 0),
+            grad_equal=torch.equal(g0, g1), passed=int((g0 != 0).sum()),
+            of=g0.numel())
+        if not (torch.equal(y0, y1) and torch.equal(g0, g1)):
+            raise AssertionError(f"STE card vs CPU: {ste}")
+    res["ste"] = ste
+
+    # one train-cell step, 8-bit AdamW
+    cells = {d: _lm_train_cell(cfg, device=d, seq=TRAIN_PARITY_SEQ,
+                               batch=TRAIN_PARITY_BATCH)
+             for d in ("cpu", card)}
+    runs = {}
+    for d, pp in (("cpu", p_cpu), (card, p_card)):
+        p = tree_map(torch.clone, pp)
+        o = adamw8bit_init(p)
+        (batch,) = _train_batches(cells[d], cfg.vocab, 1, seed=3)
+        p, o, m = cells[d].step_fn(p, o, batch)
+        runs[d] = (p, o, float(m["loss"]), float(m["grad_norm"]))
+    (pc, oc, lc, nc), (pg, og, lg, ng) = runs["cpu"], runs[card]
+    cell_res = dict(loss_cpu=lc, loss_card=lg, grad_norm_cpu=nc,
+                    grad_norm_card=ng, grad_accum=cells[card].grad_accum,
+                    **_stepped(pg, pc, 3e-4),
+                    m_q_share_off=_lattice_share(og.m_q, oc.m_q),
+                    v_q_share_off=_lattice_share(og.v_q, oc.v_q))
+    res["train_cell"] = cell_res
+    if not (abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc)
+            and abs(ng - nc) <= TRAIN_LOSS_RTOL * abs(nc)
+            and cell_res["ok"]
+            and cell_res["m_q_share_off"] <= TRAIN_FLIP_SHARE):
+        raise AssertionError(f"train cell, card vs CPU: {cell_res}")
+    del runs, pc, oc, pg, og
+
+    # one QAT Trainer step: f32 AdamW, compression, accumulation 2
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_PARITY_SEQ,
+                         batch=TRAIN_PARITY_BATCH, seed=4)
+    raw = {k: v.reshape(2, TRAIN_PARITY_BATCH // 2, -1)
+           for k, v in pipe.batch_at(0).items()}
+    qat = make_qat_loss(lambda p, b, q: TF.lm_loss(p, b, cfg, qctx=q))
+    trs = {}
+    for d, pp in (("cpu", p_cpu), (card, p_card)):
+        tr = Trainer(qat, tree_map(torch.clone, pp), TrainerConfig(
+            n_steps=1, lr=QAT_LR, warmup=0, grad_accum=2,
+            grad_compress=True, log_every=0))
+        trs[d] = (tr, tr.fit(iter([raw]))[0])
+    (tc, hc), (tg, hg) = trs["cpu"], trs[card]
+    qat_res = dict(loss_cpu=hc["loss"], loss_card=hg["loss"], lr=hg["lr"],
+                   **_stepped(tg.params, tc.params, QAT_LR,
+                              share=QAT_FLIP_SHARE))
+    res["qat_trainer"] = qat_res
+    if not (abs(hg["loss"] - hc["loss"]) <= QAT_LOSS_RTOL * abs(hc["loss"])
+            and qat_res["ok"]):
+        raise AssertionError(f"QAT Trainer, card vs CPU: {qat_res}")
+    del trs, tc, tg
+
+    # supervised restarts on the card
+    ckroot = tempfile.mkdtemp(prefix="train_path_sup_")
+    try:
+        def run(tag, fail_at=()):
+            return _supervised(cells[card], p_card, cfg.vocab,
+                               fail_at=fail_at, ckdir=f"{ckroot}/{tag}")
+        sup = {}
+        with _deterministic(False):
+            a, _ = run("n1")
+            b, _ = run("n2")
+            sup["repeat_equal_nondeterministic"] = _equal_trees(a, b)
+        del a, b
+        with _deterministic(True):
+            a, _ = run("d1")
+            b, _ = run("d2")
+            f, hist = run("f", SUPERVISOR_FAILS)
+            sup["repeat_equal_deterministic"] = _equal_trees(a, b)
+            sup["restart_equal_uninterrupted"] = _equal_trees(a, f)
+        sup.update(steps=SUPERVISOR_STEPS, failures_at=list(SUPERVISOR_FAILS),
+                   history_steps=[h["step"] for h in hist])
+        res["supervisor"] = sup
+        if not (sup["restart_equal_uninterrupted"]
+                and sup["history_steps"] == list(
+                    range(1, SUPERVISOR_STEPS + 1))):
+            raise AssertionError(f"supervised restarts: {sup}")
+        del a, b, f
+    finally:
+        shutil.rmtree(ckroot, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    _free(card)
+    return res
+
+
+def phase_train_path(params, cfg, *, device="cuda", parity=True,
+                     expect_8bit=True) -> dict:
+    """Training on the card (ROADMAP A17), last of the phases on the
+    deepseek-7b weights (it updates them):
+
+    (a) the reference's train cell at ``cfg``'s full width and depth on
+        ``params``: ``train_4k`` at seq 4096 with the global batch cut
+        256 → ``TRAIN_BATCH`` (the rule's accumulation 4: microbatches
+        of 1 x 4096), remat on, 8-bit AdamW (asserted the rule's pick
+        and the reference's state shapes), lr 3e-4; one warm step and
+        ``TRAIN_TIMED_STEPS`` timed: loss and grad norm finite, every
+        weight matrix moved and every leaf's moment non-zero (asserted);
+        one more step in a profile window (device busy, idle share); step
+        s,
+        tokens/s, model flops/s against the bf16 peak, peak memory, the
+        bytes a checkpoint of this state would take;
+    (b) QAT through the ``Trainer`` at ``QAT_LAYERS`` layers of ``cfg``
+        (``_qat_trainer_full``): one async checkpoint restored bit for bit
+        (asserted), its bytes and seconds, the fp and INT8-lattice eval
+        losses;
+    (c) card against CPU at 3 layers, f32 (``_train_parity``).
+
+    Every kernel's launches over (a)-(c) are read and must be 0 (the
+    training forward reads K/V outside the paged kernel, and QAT's GEMMs
+    are fake-quant products): ``train_path_launches``.  Runs inside
+    ``_deterministic(True)``; (c) turns it off for its repeat check."""
+    t_phase = time.perf_counter()
+    _reset_launch_counts()
+    with _deterministic(True), warnings.catch_warnings(record=True) as wrn:
+        warnings.simplefilter("always")
+        res = {"train_cell": _train_cell_full(params, cfg, device=device,
+                                              expect_8bit=expect_8bit)}
+        _free(device)
+        emit("train_path_cell", **res["train_cell"])
+        res["qat_trainer"] = _qat_trainer_full(params, cfg, device=device)
+        _free(device)
+        emit("train_path_qat", **res["qat_trainer"])
+        if parity:
+            res["parity"] = _train_parity(card=device)
+            emit("train_path_parity", **res["parity"])
+    res["launches"] = _launch_counts()
+    res["warnings"] = sorted({str(w.message)[:160] for w in wrn})
+    if any(res["launches"].values()):
+        raise AssertionError(f"train path launched a kernel: "
+                             f"{res['launches']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("train_path_done", launches=res["launches"],
+         warnings=res["warnings"], phase_s=res["phase_s"])
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 10e: a mixture-of-experts LM (qwen3-moe-30b-a3b)
 # ---------------------------------------------------------------------------
 
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_CUT = 2
-MOE_REPEATS = 3             # timed runs of the serial engine
+MOE_REPEATS = 1             # timed runs of the serial engine
 # spec_k=4 runs 12 of the 48 layers: its draft suffix holds the whole
 # stack on the edge's f32 lattice (120 GB at 48 layers, 29.9 GB at 12)
 MOE_SPEC_LAYERS = 12
@@ -4658,6 +5202,65 @@ def phase_path_parity() -> None:
     _fleet_parity()
 
 
+class ParityWorker:
+    """The card-vs-CPU checks of phase 11 (``phase_path_parity``) and of
+    the dense and MoE paths (``_dense_parity``, ``_moe_parity``) in a
+    process of its own, started after the kernel phases and joined
+    before the training path: most of their time goes to CPU runs of
+    full-width models, on host cores that the host-bound serving phases
+    leave idle, and their card runs are small (their device memory
+    beside the serving phases' stays under the card's).  It runs
+    ``chip_smoke.py --only parity`` with ``cpu_threads`` torch threads
+    into files of a temporary directory; its launch counters are its
+    own.  ``join`` waits, prints its lines and raises if it
+    failed; ``stop`` ends it if it is still running."""
+
+    def __init__(self, cpu_threads: int):
+        import tempfile
+        self._dir = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+        self._out = open(os.path.join(self._dir, "out.log"), "w+")
+        self._err = open(os.path.join(self._dir, "err.log"), "w+")
+        self.started = time.perf_counter() - _START
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--only", "parity",
+             "--cpu-threads", str(cpu_threads)],
+            stdout=self._out, stderr=self._err, cwd=str(ROOT))
+        emit("parity_worker", pid=self.proc.pid, cpu_threads=cpu_threads)
+
+    def join(self) -> None:
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        waited = time.perf_counter() - t0
+        self._out.seek(0)
+        self._err.seek(0)
+        lines, err = self._out.read().splitlines(), self._err.read()
+        self.stop()
+        for ln in lines:
+            # each phase line on the script's clock, its own beside it
+            try:
+                d = json.loads(ln)
+                d["worker_elapsed_s"] = d.pop("elapsed_s")
+                d["elapsed_s"] = self.started + d["worker_elapsed_s"]
+                ln = json.dumps(d)
+            except (ValueError, KeyError, TypeError):
+                pass
+            print(ln, flush=True)
+        if rc != 0:
+            raise RuntimeError(f"the parity worker exited with {rc}:\n"
+                               f"{err[-6000:]}")
+        emit("parity_joined", started_at_s=self.started, waited_s=waited)
+
+    def stop(self) -> None:
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self._out.closed:
+            self._out.close()
+            self._err.close()
+            shutil.rmtree(self._dir, ignore_errors=True)
+
+
 def _control_parity(cfg=None) -> dict:
     """The control loop and overload serving, lossless (``a_bits=None``,
     fp pages), f32, 2 slots, on the card and on the CPU (the CPU port is
@@ -5067,7 +5670,7 @@ LEGACY_CNNS = ("alexnet", "vgg16", "googlenet")
 # (26 of 50 blocks; every stage and block shape kept)
 CNN_DEPTH = {"vit-h14": {"n_layers": 8},
              "resnet-152": {"depths": (3, 8, 12, 3)}}
-CNN_REPEATS = 5
+CNN_REPEATS = 3
 
 
 def _cnn_images(batch, res, seed, device="cuda"):
@@ -5337,16 +5940,25 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "cnn_path", "control",
-                                       "dense", "moe"),
+                                       "dense", "moe", "train",
+                                       "parity"),
                     help="run only the kernel phases (a quick check of a "
                          "kernel change), only the CNN path, only the "
                          "build, the control loop, overload, resilient "
                          "and fleet phases and their 3-layer card-vs-CPU "
-                         "cases, only the build and the dense path, or "
+                         "cases, only the build and the dense path, "
                          "only the build, the attention kernel cases and "
-                         "the MoE path with its parity; prints no result "
-                         "line")
+                         "the MoE path with its parity, or only the "
+                         "build, fresh weights and the train path, or "
+                         "only the card-vs-CPU checks of phase 11 and of "
+                         "the dense and MoE paths (the whole script runs "
+                         "them in a process of its own); prints no "
+                         "result line")
+    ap.add_argument("--cpu-threads", type=int, default=None,
+                    help="torch's CPU threads (default: torch's own)")
     args = ap.parse_args(argv)
+    if args.cpu_threads:
+        torch.set_num_threads(args.cpu_threads)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5356,18 +5968,30 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.only == "parity":
+        phase_path_parity()
+        _dense_parity()
+        _moe_parity()
+        emit("parity_done", cpu_threads=torch.get_num_threads(),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return 0
     smi = phase_device()
     if args.only == "cnn_path":
         phase_cnn_path()
         return 0
-    phase_build()
-    if args.only == "dense":
+    build = start_build()
+    # the CNN path launches no kernel of the port: it runs on the card
+    # while nvcc compiles (its counts are still set to 0 and read)
+    cnn_launches = phase_cnn_path() if args.only is None else None
+    phase_build(build)
+    if args.only in ("dense", "train"):
         from repro_torch.configs import get_arch
         from repro_torch.models.transformer import init_lm
         cfg = get_arch("deepseek-7b").full
         params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-        phase_dense_path(params, cfg)
+        (phase_dense_path if args.only == "dense" else phase_train_path)(
+            params, cfg)
         return 0
     if args.only == "control":
         from repro_torch.configs import get_arch
@@ -5396,6 +6020,19 @@ def main(argv=None) -> int:
     phase_int8_epilogues()
     if args.only == "kernels":
         return 0
+    worker = ParityWorker(max(1, len(os.sched_getaffinity(0)) // 2))
+    try:
+        res = _serving_phases(worker)
+    finally:
+        worker.stop()
+    _summary(smi, kres, sres, ires, pres, cnn_launches, *res)
+    return 0
+
+
+def _serving_phases(worker: ParityWorker) -> tuple:
+    """Phases 4-10 on one seeded set of deepseek-7b weights, ``worker``
+    joined before the training path, then the MoE path; the results the
+    summary line reads."""
     # one seeded set of deepseek-7b weights for phases 4-6
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import init_lm
@@ -5416,12 +6053,23 @@ def main(argv=None) -> int:
     res_res = phase_resilient_path(
         params, cfg, fault_free={1: main_res["outs"], 4: spec_res["outs"]})
     fleet_res = phase_fleet_path(params, cfg)
-    dense_res = phase_dense_path(params, cfg)
+    # the dense and MoE paths' card-vs-CPU checks run in the worker
+    dense_res = phase_dense_path(params, cfg, parity=False)
+    # the training and MoE paths take most of the card's memory
+    worker.join()
+    train_res = phase_train_path(params, cfg)   # it updates the weights
     del params
     torch.cuda.empty_cache()
-    moe_res = phase_moe_path()
-    phase_path_parity()
-    cnn_launches = phase_cnn_path()
+    moe_res = phase_moe_path(parity=False)
+    return (main_res, spec_res, samp_res, tp_res, adapt_res, over_res,
+            res_res, fleet_res, dense_res, train_res, moe_res)
+
+
+def _summary(smi, kres, sres, ires, pres, cnn_launches, main_res, spec_res,
+             samp_res, tp_res, adapt_res, over_res, res_res, fleet_res,
+             dense_res, train_res, moe_res) -> None:
+    """The ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
+    result line."""
     # each summary row is the kernel's main-path shape: the decode step
     # of 4 slots (int8_matmul_splitk: gate/up at M = 4; int8_matmul, the
     # front door, and int8_matmul_wgmma, its kernel above 32 rows:
@@ -5543,6 +6191,8 @@ def main(argv=None) -> int:
         r["fleet_path_launches"] = fleet_res["launches"][r["name"]]
         # read from the counters; phase_dense_path failed if any was not 0
         r["dense_path_launches"] = dense_res["launches"][r["name"]]
+        # phase_train_path failed if any was not 0
+        r["train_path_launches"] = train_res["launches"][r["name"]]
         # the MoE path's (a)-(c) runs together; B4's rows must read 0
         r["moe_path_launches"] = moe_res["launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
@@ -5550,7 +6200,6 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

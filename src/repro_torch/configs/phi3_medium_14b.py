@@ -10,7 +10,8 @@ FULL = LMConfig(name="phi3-medium-14b", n_layers=40, d_model=5120,
                 dtype=torch.bfloat16)
 
 SMOKE = LMConfig(name="phi3-medium-14b-smoke", n_layers=2, d_model=64,
-                 n_heads=4, n_kv=1, d_ff=224, vocab=256)
+                 n_heads=4, n_kv=1, d_ff=224, vocab=256,
+                 remat=False)
 
 SPEC = ArchSpec(arch_id="phi3-medium-14b", family="lm", full=FULL,
                 smoke=SMOKE, source="arXiv:2404.14219; unverified")

@@ -11,7 +11,7 @@ FULL = LMConfig(name="qwen3-moe-30b-a3b", n_layers=48, d_model=2048,
 
 SMOKE = LMConfig(name="qwen3-moe-smoke", n_layers=2, d_model=64, n_heads=4,
                  n_kv=2, head_dim=16, d_ff=32, vocab=256,
-                 moe=MoESpec(n_experts=8, top_k=2))
+                 moe=MoESpec(n_experts=8, top_k=2), remat=False)
 
 SPEC = ArchSpec(arch_id="qwen3-moe-30b-a3b", family="lm", full=FULL,
                 smoke=SMOKE, source="hf:Qwen/Qwen3-30B-A3B; hf")

@@ -13,10 +13,10 @@ like ``jnp.round``, and every intermediate keeps the dtype the JAX code
 gives it (a bf16 input keeps its thresholds in bf16 until the final
 cast, exactly as JAX's weak-typed scalars do).
 
-Also here: the min/max calibrator (the paper's off-line profiling step)
-and the parameter-tree helpers of the edge's INT8 model download.  The
-straight-through gradient and the percentile and EMA calibrators come
-with training.
+Also here: the clipped straight-through gradient of ``fake_quant``
+(quantization-aware training), the min/max, percentile and EMA
+calibrators (the paper's off-line profiling step) and the
+parameter-tree helpers of the edge's INT8 model download.
 """
 from __future__ import annotations
 
@@ -24,11 +24,13 @@ import dataclasses
 import functools
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["QuantParams", "compute_qparams", "quantize", "dequantize",
-           "fake_quant", "MinMaxCalibrator", "quantize_pytree",
-           "dequantize_pytree", "pytree_quant_bytes"]
+           "fake_quant", "MinMaxCalibrator", "PercentileCalibrator",
+           "EMACalibrator", "quantize_pytree", "dequantize_pytree",
+           "pytree_quant_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,15 +158,46 @@ def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     return (q.to(torch.float32) - zp) * scale
 
 
+def _roundtrip(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+               qmin: float, qmax: float) -> torch.Tensor:
+    q = torch.clamp(torch.round(x / scale + zp), qmin, qmax)
+    return (q - zp) * scale
+
+
+class _ClippedSTE(torch.autograd.Function):
+    """The reference's ``_ste_roundtrip``: the Eq.(1)/(2) round trip
+    forward; backward passes the gradient where the value before
+    rounding was representable (``qmin - 0.5 <= x / scale + zp <= qmax
+    + 0.5``) and gives 0 where it saturated.  Scale and zero point get
+    no gradient, as the reference's backward returns ``None`` for them."""
+
+    @staticmethod
+    def forward(ctx, x, scale, zp, qmin, qmax):
+        if ctx.needs_input_grad[0]:
+            t = x / scale + zp
+            ctx.save_for_backward((t >= qmin - 0.5) & (t <= qmax + 0.5))
+        return _roundtrip(x, scale, zp, qmin, qmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inside,) = ctx.saved_tensors
+        return (torch.where(inside, g, torch.zeros((), dtype=g.dtype,
+                                                   device=g.device)),
+                None, None, None, None)
+
+
 def fake_quant(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
-    """Quantize→dequantize on the Eq.(1) lattice (forward of the JAX
-    reference's straight-through round trip)."""
+    """Quantize→dequantize on the Eq.(1) lattice with the reference's
+    clipped straight-through gradient (QAT).  Without autograd
+    recording a gradient of ``x`` the round trip runs plainly: the same
+    operations, bit for bit."""
     x = _promoted(x, qp)
     scale = qp._bcast(qp.scale, x.ndim)
     zp = qp._bcast(qp.zero_point, x.ndim)
-    q = torch.clamp(torch.round(x / scale + zp), float(qp.qmin),
-                    float(qp.qmax))
-    return (q - zp) * scale
+    lo, hi = float(qp.qmin), float(qp.qmax)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ClippedSTE.apply(x, scale.detach(), zp.detach(), lo, hi)
+    return _roundtrip(x, scale, zp, lo, hi)
 
 
 class MinMaxCalibrator:
@@ -194,6 +227,72 @@ class MinMaxCalibrator:
             amax = torch.maximum(torch.abs(t_min), torch.abs(t_max))
             t_min, t_max = -amax, amax
         return _minmax_to_qparams(t_min, t_max, bits=self.bits,
+                                  signed=self.signed, axis=self.axis)
+
+
+class PercentileCalibrator:
+    """Clip thresholds at a percentile of the observed values — robust to
+    activation outliers (per tensor only).  The reference's numpy
+    arithmetic: each batch subsampled with a fixed stride to about 65,536
+    values, at most ``1 << 22`` values kept (the oldest batches dropped),
+    thresholds by ``np.percentile``."""
+
+    def __init__(self, percentile: float = 99.9, *, bits: int = 8,
+                 signed: bool = True):
+        if not 50.0 < percentile <= 100.0:
+            raise ValueError(f"percentile {percentile} not in (50, 100]")
+        self.percentile, self.bits, self.signed = percentile, bits, signed
+        self._samples: list = []
+        self._budget = 1 << 22
+        self._device: Optional[torch.device] = None
+
+    def observe(self, x: torch.Tensor) -> None:
+        self._device = x.device
+        flat = x.detach().to(torch.float32).cpu().numpy().ravel()
+        if flat.size > 65536:
+            flat = flat[::flat.size // 65536]
+        self._samples.append(flat)
+        total = sum(s.size for s in self._samples)
+        while total > self._budget and len(self._samples) > 1:
+            total -= self._samples.pop(0).size
+
+    def qparams(self) -> QuantParams:
+        if not self._samples:
+            raise RuntimeError("observe() at least one batch first")
+        allv = np.concatenate(self._samples)
+        lo = np.float32(np.percentile(allv, 100.0 - self.percentile))
+        hi = np.float32(np.percentile(allv, self.percentile))
+        t = functools.partial(torch.tensor, dtype=torch.float32,
+                              device=self._device)
+        return _minmax_to_qparams(t(lo), t(hi), bits=self.bits,
+                                  signed=self.signed, axis=None)
+
+
+class EMACalibrator:
+    """Exponential-moving-average min/max (TensorRT-style smoothing):
+    ``m * old + (1 - m) * new`` in f32, as the reference's weak-typed
+    scalars compute it."""
+
+    def __init__(self, momentum: float = 0.95, *, axis: Optional[int] = None,
+                 bits: int = 8, signed: bool = True):
+        self.momentum, self.axis = momentum, axis
+        self.bits, self.signed = bits, signed
+        self._min: Optional[torch.Tensor] = None
+        self._max: Optional[torch.Tensor] = None
+
+    def observe(self, x: torch.Tensor) -> None:
+        lo, hi = _reduce_minmax(x, self.axis)
+        if self._min is None:
+            self._min, self._max = lo, hi
+        else:
+            m = self.momentum
+            self._min = m * self._min + (1 - m) * lo
+            self._max = m * self._max + (1 - m) * hi
+
+    def qparams(self) -> QuantParams:
+        if self._min is None:
+            raise RuntimeError("observe() at least one batch first")
+        return _minmax_to_qparams(self._min, self._max, bits=self.bits,
                                   signed=self.signed, axis=self.axis)
 
 

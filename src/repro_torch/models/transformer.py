@@ -12,7 +12,9 @@ The cache layouts are the reference's: dense (fp, or INT8 with
 per-(layer, kv-head) scales) and paged (fp or INT8 pages with per-slot
 scales); ``forward`` is the cacheless causal pass, and ``make_segments``
 the block-granular view the paper's ``CollaborativeEngine`` splits.
-``lm_loss`` is not ported yet (ROADMAP A17).
+``lm_loss`` is the training loss; with ``LMConfig.remat`` the forward
+recomputes each block in the backward pass (the reference's
+``jax.checkpoint``), only while autograd records.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.bridge import tree_map
+from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.core.collab import Segment, SegmentedModel
 from repro_torch.core.graph import LayerGraph
 from repro_torch.device import DeviceLike, resolve_device
@@ -55,6 +58,7 @@ class LMConfig:
     rope_base: float = 10000.0
     dtype: torch.dtype = torch.float32      # params + compute dtype
     q_chunk: Optional[int] = None   # query-block tiling of long prefills
+    remat: bool = True              # recompute blocks in the backward pass
 
     @property
     def hd(self) -> int:
@@ -160,26 +164,73 @@ def block_apply(p: Params, x: torch.Tensor, cfg: LMConfig, *,
     return x + h, new_cache, aux
 
 
+def layer_views(blocks: Union[Params, List[Params]]) -> List[Params]:
+    """Each block's parameters: views into the stacked ``[L]`` leaves
+    (``unbind``, so a backward pass stacks the layers' gradients once
+    instead of scattering each into a zeroed whole-stack tensor), or
+    ``blocks`` itself when it is already a list of per-layer trees (the
+    train cell's gradient-routing views, ``train.grads``)."""
+    if isinstance(blocks, list):
+        return blocks
+    unbound = tree_map(lambda v: v.unbind(0), blocks)
+    return [tree_map(lambda t, i=i: t[i], unbound)
+            for i in range(_n_layers(blocks))]
+
+
+def remat_active(remat: bool, x: torch.Tensor, layer: Params) -> bool:
+    """Whether to checkpoint a block: with ``remat``, and only while
+    autograd records a gradient through it (serving runs it plainly)."""
+    return (remat and torch.is_grad_enabled()
+            and (x.requires_grad
+                 or any(t.requires_grad for t in tree_leaves(layer))))
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, *,
             qctx: Optional[QuantCtx] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward, no cache → (logits [B, S, V], aux loss).  The
     aux loss is the sum of the MoE blocks' balance terms, layer by layer
     from 0 (a 0-dim f32 tensor, as the reference's scan carries it; 0
-    for dense blocks)."""
+    for dense blocks).  ``params["blocks"]`` is the stacked tree or a
+    list of per-layer trees (``layer_views``)."""
     s = tokens.shape[1]
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     rope = L.rope_table(s, cfg.hd, base=cfg.rope_base, dtype=cfg.dtype,
                         device=tokens.device)
-    blocks = params["blocks"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_n_layers(blocks)):
-        x, _, a = block_apply(tree_map(lambda v: v[i], blocks), x, cfg,
-                              rope=rope, qctx=qctx)
+
+    def block(layer, x):
+        y, _, a = block_apply(layer, x, cfg, rope=rope, qctx=qctx)
+        return y, a
+
+    for layer in layer_views(params["blocks"]):
+        if remat_active(cfg.remat, x, layer):
+            x, a = checkpoint(block, layer, x, use_reentrant=False)
+        else:
+            x, a = block(layer, x)
         aux = aux + a
     x = L.rmsnorm(params["final_norm"], x)
     logits = L.dense(params["lm_head"], x, name="lm_head")
     return logits, aux
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean of ``logsumexp(logits) - logits[label]`` over every position,
+    in f32 (the reference's cross-entropy)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig,
+            *, aux_weight: float = 0.01,
+            qctx: Optional[QuantCtx] = None) -> torch.Tensor:
+    """Next-token loss: ``nll + aux_weight * aux / n_layers`` in f32
+    (``batch``: ``tokens`` and ``labels`` [B, S])."""
+    logits, aux = forward(params, batch["tokens"], cfg, qctx=qctx)
+    return token_nll(logits, batch["labels"]) + aux_weight * aux \
+        / cfg.n_layers
 
 
 # ---------------------------------------------------------------------------

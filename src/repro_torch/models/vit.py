@@ -13,8 +13,11 @@ one static range per name across its blocks, as the reference's does.
 The candidate cuts include ``blk{i}/attn``, but segments end only at
 ``blk{i}/ffn`` (a whole block): an engine cuts at ``input`` or a
 segment.  The patch embedding, each block and the head run inside
-``full_f32`` (an f32 product on the card in true f32); ``remat`` and
-``scan_unroll`` are inert here, kept so that configs read alike.
+``full_f32`` (an f32 product on the card in true f32).  With
+``remat`` each block is recomputed in the backward pass while autograd
+records (the reference's ``jax.checkpoint``); ``scan_unroll`` is inert
+here, kept so that configs read alike.  ``cls_loss`` is the training
+loss.
 """
 from __future__ import annotations
 
@@ -22,12 +25,15 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_map
 from repro_torch.core.graph import LayerGraph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import QuantCtx, full_f32
+from repro_torch.models.transformer import (layer_views, remat_active,
+                                            token_nll)
 
 Params = Dict[str, Any]
 
@@ -154,11 +160,24 @@ def _head_apply(p: Params, x: torch.Tensor, cfg: ViTConfig, *,
 
 def forward(params: Params, img: torch.Tensor, cfg: ViTConfig, *,
             qctx: Optional[QuantCtx] = None) -> torch.Tensor:
-    """img [B, H, W, 3] → logits [B, n_classes]."""
+    """img [B, H, W, 3] → logits [B, n_classes].  ``params["blocks"]``
+    is the stacked tree or a list of per-layer trees."""
     x = _patch_apply(params, img, cfg, qctx=qctx)
-    for i in range(cfg.n_layers):
-        x = block_apply(block_params(params, i), x, cfg, qctx=qctx)
+
+    def block(layer, x):
+        return block_apply(layer, x, cfg, qctx=qctx)
+
+    for layer in layer_views(params["blocks"]):
+        x = (checkpoint(block, layer, x, use_reentrant=False)
+             if remat_active(cfg.remat, x, layer) else block(layer, x))
     return _head_apply(params, x, cfg, qctx=qctx)
+
+
+def cls_loss(params: Params, batch: Dict[str, torch.Tensor],
+             cfg: ViTConfig) -> torch.Tensor:
+    """Mean cross-entropy of ``batch["image"]`` against
+    ``batch["label"]``, in f32."""
+    return token_nll(forward(params, batch["image"], cfg), batch["label"])
 
 
 def make_graph(cfg: ViTConfig, *, batch: int) -> LayerGraph:

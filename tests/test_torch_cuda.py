@@ -33,7 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.bridge import tree_map  # noqa: E402
+from repro_torch.bridge import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import collab as TC  # noqa: E402
 from repro_torch.core.quant import (QuantParams, compute_qparams,  # noqa: E402
@@ -1345,3 +1345,95 @@ def test_moe_on_card_matches_cpu(cuda):
     for check in res["moe"].values():
         assert check["repeat_identical"]
         assert check["max_abs_err"] <= check["tol"]
+
+
+# ------------------------------- training -----------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [None, 1])
+def test_ste_on_card_equals_cpu(cuda, axis):
+    """The clipped STE: forward and gradient (the representable-range
+    mask times the cotangent) equal on the card and the CPU."""
+    from repro_torch.core.quant import fake_quant
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(32, 96, generator=g) * 4
+    ct = torch.randn(32, 96, generator=g)
+    qp = compute_qparams(x * 0.7, axis=axis)      # x saturates here and there
+    outs = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev, copy=True).requires_grad_()
+        y = fake_quant(xd, QuantParams(scale=qp.scale.to(dev),
+                                       zero_point=qp.zero_point.to(dev),
+                                       axis=qp.axis))
+        y.backward(ct.to(dev))
+        outs.append((y.detach().cpu(), xd.grad.cpu()))
+    (y0, g0), (y1, g1) = outs
+    assert torch.equal(y0, y1) and torch.equal(g0, g1)
+    assert (g0 == 0).any() and (g0 != 0).any()      # both sides of the clip
+
+
+@pytest.mark.gpu
+def test_8bit_adamw_on_card_equals_cpu(cuda):
+    """Under the clip (the global norm below ``grad_clip``) the 8-bit
+    moments' lattices and scales are equal on the card and the CPU;
+    parameters within 2e-6 relative (the f32 ``pow`` of the bias
+    corrections)."""
+    from repro_torch.train import optim as TO
+    g = torch.Generator().manual_seed(1)
+    shapes = {"stack": (3, 8, 256), "mat": (4, 384), "odd": (5, 100),
+              "vec": (7,)}
+    p0 = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=g) * 0.01 for k, s in
+              shapes.items()} for _ in range(3)]
+    cfg = TO.AdamWConfig(lr=1e-2, grad_clip=1e3)
+    res = []
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev, copy=True) for k, v in p0.items()}
+        o = TO.adamw8bit_init(p)
+        for gr in grads:
+            p, o, _ = TO.adamw8bit_update({k: v.to(dev) for k, v in
+                                          gr.items()}, o, p, cfg)
+        res.append((p, o))
+    (pc, oc), (pg, og) = res
+    for f in ("m_q", "m_scale", "v_q", "v_scale"):
+        for k in shapes:
+            assert torch.equal(getattr(oc, f)[k], getattr(og, f)[k].cpu())
+    for k in shapes:
+        torch.testing.assert_close(pg[k].cpu(), pc[k], rtol=2e-6, atol=1e-8)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """``chip_smoke._train_parity`` (the script's train path (c)) on a
+    3-layer deepseek-7b ``SMOKE``-width model in f32: the STE, one
+    train-cell step with 8-bit AdamW and one QAT ``Trainer`` step card
+    against CPU within the phase's tolerances, and supervised restarts
+    equal to an uninterrupted run under deterministic kernels."""
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(CFG, n_layers=3, d_model=128, n_heads=4,
+                              n_kv=4, d_ff=256, vocab=512)
+    res = cs._train_parity(cfg)
+    assert res["train_cell"]["ok"] and res["qat_trainer"]["ok"]
+    assert res["supervisor"]["restart_equal_uninterrupted"]
+    assert res["supervisor"]["repeat_equal_deterministic"]
+
+
+@pytest.mark.gpu
+def test_card_checkpoint_restores_on_cpu_bit_for_bit(cuda, tmp_path):
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.train.optim import adamw8bit_init
+    g = torch.Generator(device="cuda").manual_seed(2)
+    params = {"w": torch.randn(4, 256, generator=g, device="cuda"),
+              "h": torch.randn(2, 3, 128, generator=g,
+                               device="cuda").to(torch.bfloat16),
+              "ids": torch.randint(0, 9, (5,), generator=g, device="cuda",
+                                   dtype=torch.int32)}
+    state = {"params": params,
+             "opt": adamw8bit_init({k: params[k] for k in ("w", "h")})}
+    save_checkpoint(tmp_path, 1, state)
+    back, step, _ = restore_checkpoint(tmp_path, state, device="cpu")
+    assert step == 1
+    for a, b in zip(tree_leaves(back), tree_leaves(state)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b.cpu())
