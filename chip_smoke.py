@@ -215,7 +215,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                     identical) and the engines' streams and decisions
                     up to near-ties.  Device memory is back under 1 GB
                     after (a)-(c) (asserted).
-11. ``path_parity``— (with ``path_parity_dense`` and ``path_parity_moe``:
+10g. ``diffusion_path`` — (run during the build, after phase 12; (d)
+                    after phase 11's process is joined, on the deepseek-7b
+                    weights; (e) in that process) the diffusion families
+                    at their published widths (bf16, seeded weights):
+                    (a) unet-sd15's ``gen_fast`` 4-step DDIM sampler at
+                    batch 16, 512², through the denoise cell, and
+                    ``gen_1024`` at batch 4 (the ``q_chunk`` path), one
+                    warm and one timed step; (b) flux-dev, all 19 + 38
+                    blocks: ``gen_fast``'s 4 Euler steps at batch 16 and
+                    ``gen_1024`` at batch 4 (4,608 tokens); (c) the train
+                    cells: unet-sd15 ``train_256`` at batch 8 (f32 AdamW,
+                    the rule's pick asserted), flux-dev ``train_256`` at
+                    2 + 2 of its blocks, batch 2: losses finite, every
+                    weight matrix moved; (d) deepseek-7b's ``prefill_32k``
+                    cell at batch 1 and ``decode_32k`` at batch 2 on a
+                    32,768-position dense cache; (e) card against CPU in
+                    f32 (``diffusion_path_parity``: one denoise step of
+                    unet-sd15 at full widths, one res block a stage, 128²,
+                    and of flux-dev at full width, 1 + 1 blocks, 256²).
+                    Step s, images/s, model flops/s against the bf16
+                    peak, peak memory; one profiled step a model (device
+                    busy, idle share, top kernels).  Every kernel's
+                    launches over (a)-(d) read and asserted 0.
+11. ``path_parity``— (with ``path_parity_dense``, ``path_parity_moe`` and
+                    ``diffusion_path_parity``:
                     in a process of its own, ``ParityWorker``, from the
                     end of phase 3 until before phase 10f; its lines
                     are printed when it is joined)
@@ -274,7 +298,8 @@ Then a ``{"kernels": [...]}`` summary line (each row with its
 ``cnn_path_launches``, ``adaptive_path_launches``,
 ``overload_path_launches``, ``resilient_path_launches``,
 ``fleet_path_launches``, ``dense_path_launches``,
-``train_path_launches`` and ``moe_path_launches``), the
+``train_path_launches``, ``moe_path_launches`` and
+``diffusion_path_launches``), the
 ``nvidia-smi`` name and
 power-limit line, and last the ``{"ok": true, "device": ...}`` line.
 Needs no network; exits non-zero without printing a result when no CUDA
@@ -4978,6 +5003,366 @@ def _free(device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10g: the diffusion families and the LM serving cells
+# ---------------------------------------------------------------------------
+
+
+DIFF_SEED = 0
+UNET_TRAIN_BATCH = 8        # train_256's global batch 256, reduced
+FLUX_TRAIN_BLOCKS = {"n_double": 2, "n_single": 2}   # of 19 + 38
+FLUX_TRAIN_BATCH = 2
+LM_PREFILL_BATCH = 1        # prefill_32k's global batch 32, reduced
+LM_DECODE_BATCH = 2         # decode_32k's global batch 128, reduced
+LM_DECODE_INDEX = 16384     # the decode cell's cache_index (a 0-dim tensor)
+DIFF_TOL = 2e-4             # f32, card vs CPU, × max |CPU|
+# (e)'s cut models (full widths, f32) and resolutions
+UNET_PARITY = ({"n_res_blocks": 1}, 128)
+FLUX_PARITY = ({"n_double": 1, "n_single": 1}, 256)
+
+
+def _diff_inputs(cell, seed: int, *, t_value=None) -> dict:
+    """A cell's inputs drawn on its device from a seeded generator: the
+    latents, text and context normal; U-Net ``t`` uniform in
+    [0, 1000) (or ``t_value``), MMDiT ``t`` uniform in [0, 1)."""
+    dev = cell.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, spec in cell.batch_specs.items():
+        if k == "t" and not spec.dtype.is_floating_point:
+            out[k] = (torch.full(spec.shape, t_value, dtype=spec.dtype,
+                                 device=dev) if t_value is not None else
+                      torch.randint(0, 1000, spec.shape, generator=gen,
+                                    device=dev, dtype=spec.dtype))
+        elif k == "t":
+            out[k] = (torch.full(spec.shape, t_value, dtype=spec.dtype,
+                                 device=dev) if t_value is not None else
+                      torch.rand(spec.shape, generator=gen, device=dev,
+                                 dtype=spec.dtype))
+        else:
+            out[k] = torch.randn(spec.shape, generator=gen, device=dev,
+                                 dtype=spec.dtype)
+    return out
+
+
+def _finite(what: str, t: torch.Tensor, shape=None) -> None:
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise AssertionError(f"{what}: shape {tuple(t.shape)}, want "
+                             f"{tuple(shape)}")
+    if not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{what}: non-finite values")
+
+
+def _diff_cell(arch, shape, *, device, smoke, batch=None, cfg=None,
+               img_res=None):
+    from repro_torch.launch.steps import build_cell
+    sh = {k: v for k, v in (("global_batch", batch), ("img_res", img_res))
+          if v is not None}
+    return build_cell(arch, shape, smoke=smoke, device=device,
+                      cfg_override=cfg, shape_override=sh or None)
+
+
+def _sampler(cell, params, x, inputs, total: int, run: int,
+             device) -> tuple:
+    """The first ``run`` of a ``total``-step sampler's denoise steps of
+    ``cell`` from ``x``: DDIM at t = 1000 - stride · (i + 1) (the last to
+    the clean sample), or Euler from t = 1 down by 1 / total → (the
+    sample, each step's seconds)."""
+    secs = []
+    for i in range(run):
+        if "ctx" in inputs:
+            t = torch.full_like(inputs["t"], 1000 - (1000 // total) * (i + 1))
+        else:
+            t = torch.full_like(inputs["t"], 1.0 - i / total)
+        t0 = time.perf_counter()
+        x = cell.run(params, None, {**inputs, "latent": x, "t": t})
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        _finite(f"{cell.arch_id} {cell.shape_name} step {i + 1}", x,
+                inputs["latent"].shape)
+    return x, secs
+
+
+def _denoise_row(cell, params, *, device, profile: bool,
+                 sampler: bool) -> dict:
+    """``sampler``: the cell's whole sampler (its shape's ``steps``, each
+    timed, the first warm); else its first two steps, one warm and one
+    timed."""
+    from repro_torch.configs import get_arch
+    steps = get_arch(cell.arch_id).shapes[cell.shape_name].steps
+    inputs = _diff_inputs(cell, DIFF_SEED)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        x, secs = _sampler(cell, params, inputs["latent"], inputs, steps,
+                           steps if sampler else 2, device)
+        step_s = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+        prof = None
+        if profile and device.type == "cuda":
+            prof = profile_window(lambda: cell.run(params, None, inputs),
+                                  step_s, top=8)
+    b = inputs["latent"].shape[0]
+    return dict(shape=cell.shape_name, kind=cell.kind, batch=b,
+                latent=list(inputs["latent"].shape), sampler_steps=steps,
+                steps_run=len(secs), step_s=step_s, step_s_all=secs,
+                sampler_s=sum(secs) if sampler else None,
+                images_per_s=(b / sum(secs) if sampler else b / steps
+                              / step_s),
+                model_flops=cell.model_flops,
+                model_flops_per_s=cell.model_flops / step_s,
+                share_of_bf16_peak=cell.model_flops / step_s / BF16_FLOPS,
+                out_std=float(x.float().std()),
+                peak_mem_gb=_peak_gb(device), profile=prof)
+
+
+def _diff_train_row(cell, *, device, steps: int = 2) -> dict:
+    """One warm and ``steps - 1`` timed train steps on fresh seeded
+    weights: the moment rule's pick, losses finite, every weight matrix
+    moved."""
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.launch.steps import use_8bit_moments
+    from repro_torch.train.optim import AdamW8bitState
+    params = cell.init_params()
+    n_params = sum(t.numel() for _, t in tree_flatten(params))
+    opt = cell.init_opt(params)
+    want_8bit = use_8bit_moments(n_params)
+    if isinstance(opt, AdamW8bitState) != want_8bit:
+        raise AssertionError(f"{cell.arch_id} train: the optimizer is not "
+                             "the rule's")
+    before = {p: _leaf_sample(t) for p, t in tree_flatten(params)}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(steps):
+        batch = _diff_inputs(cell, DIFF_SEED + 1 + i)
+        t0 = time.perf_counter()
+        params, opt, m = cell.step_fn(params, opt, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        rows.append(dict(step=i + 1, loss=loss, grad_norm=gnorm,
+                         seconds=time.perf_counter() - t0))
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{cell.arch_id} train step {i + 1}: "
+                                 f"loss {loss}, grad norm {gnorm}")
+    stuck = [p for p, t in tree_flatten(params)
+             if p.endswith("['w']") and torch.equal(before[p],
+                                                     _leaf_sample(t))]
+    if stuck:
+        raise AssertionError(f"{cell.arch_id} train: unmoved weights "
+                             f"{stuck}")
+    step_s = statistics.median(r["seconds"] for r in rows[1:])
+    out = dict(shape=cell.shape_name, n_params=n_params, use_8bit=want_8bit,
+               batch=cell.batch_specs["latent"].shape[0], steps=rows,
+               step_s=step_s, images_per_s=cell.batch_specs["latent"].shape[0]
+               / step_s, model_flops=cell.model_flops,
+               model_flops_per_s=cell.model_flops / step_s,
+               share_of_bf16_peak=cell.model_flops / step_s / BF16_FLOPS,
+               peak_mem_gb=_peak_gb(device),
+               weights_moved=sum(p.endswith("['w']") for p in before))
+    del params, opt
+    return out
+
+
+def phase_diffusion_path(*, device="cuda", smoke=False) -> dict:
+    """The diffusion families on the card (ROADMAP A18), seeded bf16
+    weights at the published widths (``smoke``: the SMOKE configs and
+    shapes, a CPU rehearsal):
+
+    (a) unet-sd15 (0.81 B parameters): ``gen_fast``'s whole 4-step DDIM
+        sampler at batch 16, 512², through the denoise cell; ``gen_1024``
+        at batch 4 (16,384 latent cells: the ``q_chunk`` path), one warm
+        and one timed step; one profiled step;
+    (b) flux-dev, all 19 + 38 blocks (11.88 B parameters, drawn a layer
+        at a time): ``gen_fast``'s 4 Euler steps at batch 16;
+        ``gen_1024`` at batch 4 (4,608 tokens), one warm and one timed
+        step; one profiled step;
+    (c) the train cells: unet-sd15 ``train_256`` with the batch cut 256 →
+        ``UNET_TRAIN_BATCH`` (the moment rule's pick asserted: f32
+        AdamW), flux-dev ``train_256`` at ``FLUX_TRAIN_BLOCKS`` of its
+        blocks, full width, batch ``FLUX_TRAIN_BATCH``; one warm and one
+        timed step each, losses finite, every weight matrix moved.
+
+    Each step is finite and of the input's shape (asserted).  Every
+    kernel's launches over (a)-(c) are read and must be 0: the diffusion
+    attention is the reference's eager ``einsum`` / softmax, outside any
+    Pallas kernel.  (d), the LM cells, runs on the deepseek-7b weights
+    (``phase_lm_cells``) and (e), card against CPU, in the parity worker
+    (``_diffusion_parity``)."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    _reset_launch_counts()
+    res = {"reduced": {
+        "unet-sd15 train_256": {"global_batch": [256, UNET_TRAIN_BATCH]},
+        "flux-dev train_256": {"global_batch": [256, FLUX_TRAIN_BATCH],
+                               "blocks": ["19 + 38", "{n_double} + "
+                                          "{n_single}".format(
+                                              **FLUX_TRAIN_BLOCKS)]}}}
+    for arch in ("unet-sd15", "flux-dev"):
+        t0 = time.perf_counter()
+        fast = _diff_cell(arch, "gen_fast", device=device, smoke=smoke)
+        params = fast.init_params()
+        _sync(device)
+        from repro_torch.bridge import tree_flatten
+        row = dict(arch=arch, init_s=time.perf_counter() - t0,
+                   n_params=sum(t.numel() for _, t in tree_flatten(params)),
+                   weights_gb=_tree_bytes(params) / 1e9)
+        row["gen_fast"] = _denoise_row(fast, params, device=device,
+                                       profile=True, sampler=True)
+        big = _diff_cell(arch, "gen_1024", device=device, smoke=smoke)
+        row["gen_1024"] = _denoise_row(big, params, device=device,
+                                       profile=False, sampler=False)
+        del params, fast, big
+        _free(device)
+        row["phase_s"] = time.perf_counter() - t0
+        res[arch] = row
+        emit("diffusion_path_" + arch.split("-")[0], **row)
+    t0 = time.perf_counter()
+    res["train"] = {
+        "unet-sd15": _diff_train_row(_diff_cell(
+            "unet-sd15", "train_256", device=device, smoke=smoke,
+            batch=None if smoke else UNET_TRAIN_BATCH), device=device),
+        "flux-dev": _diff_train_row(_diff_cell(
+            "flux-dev", "train_256", device=device, smoke=smoke,
+            batch=None if smoke else FLUX_TRAIN_BATCH,
+            cfg=FLUX_TRAIN_BLOCKS), device=device)}
+    if res["train"]["unet-sd15"]["use_8bit"]:
+        raise AssertionError("unet-sd15 train: 0.81 B parameters take f32 "
+                             "moments by the rule")
+    _free(device)
+    res["train_s"] = time.perf_counter() - t0
+    emit("diffusion_path_train", **res["train"], seconds=res["train_s"])
+    res["launches"] = _launch_counts()
+    if any(res["launches"].values()):
+        raise AssertionError(f"diffusion path launched a kernel: "
+                             f"{res['launches']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("diffusion_path_done", launches=res["launches"],
+         reduced=res["reduced"], phase_s=res["phase_s"])
+    return res
+
+
+def phase_lm_cells(params, cfg, *, device="cuda", seq=None) -> dict:
+    """(d) of the diffusion path: the LM's serving cells on ``params``
+    (deepseek-7b at full width and depth): ``prefill_32k`` at batch
+    ``LM_PREFILL_BATCH`` (``q_chunk=2048``, a dense cache made in the
+    step) and ``decode_32k`` at batch ``LM_DECODE_BATCH`` on a dense
+    32,768-position cache at a 0-dim ``cache_index``; one warm and one
+    timed call each, logits finite and of the reference's shape, every
+    kernel's launches 0.  ``seq`` cuts both cells' sequence (a CPU
+    rehearsal)."""
+    t_phase = time.perf_counter()
+    device = torch.device(device)
+    _reset_launch_counts()
+    res = {"reduced": {"prefill_32k": {"global_batch": [32,
+                                                         LM_PREFILL_BATCH]},
+                       "decode_32k": {"global_batch": [128,
+                                                       LM_DECODE_BATCH]}}}
+    gen = torch.Generator(device=device).manual_seed(DIFF_SEED)
+    for shape, batch in (("prefill_32k", LM_PREFILL_BATCH),
+                         ("decode_32k", LM_DECODE_BATCH)):
+        from repro_torch.launch.steps import build_cell
+        sh = {"global_batch": batch}
+        if seq is not None:
+            sh["seq_len"] = seq
+        cell = build_cell("deepseek-7b", shape, cfg_override=_all_fields(cfg),
+                          shape_override=sh, device=device)
+        spec = cell.batch_specs
+        if shape == "prefill_32k":
+            inputs = {"tokens": torch.randint(0, cfg.vocab,
+                                              spec["tokens"].shape,
+                                              generator=gen, device=device,
+                                              dtype=torch.int32)}
+            tokens = batch * spec["tokens"].shape[1]
+        else:
+            inputs = {"token": torch.randint(0, cfg.vocab, (batch,),
+                                             generator=gen, device=device,
+                                             dtype=torch.int32),
+                      "cache_index": torch.tensor(
+                          min(LM_DECODE_INDEX, (seq or LM_DECODE_INDEX) - 1),
+                          dtype=torch.int32,
+                                                  device=device)}
+            tokens = batch
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state = cell.init_state(params)
+        secs = []
+        with torch.no_grad():
+            for _ in range(2):
+                t0 = time.perf_counter()
+                logits, cache = cell.run(params, state, inputs)
+                _sync(device)
+                secs.append(time.perf_counter() - t0)
+                _finite(f"{shape} logits", logits, (batch, cfg.vocab))
+        cache_gb = _tree_bytes(cache) / 1e9
+        cache_len = cache["k"].shape[2]
+        del state, cache, logits
+        _free(device)
+        res[shape] = dict(batch=batch, seq_len=cache_len,
+                          warm_s=secs[0], call_s=secs[1],
+                          tokens_per_s=tokens / secs[1],
+                          model_flops=cell.model_flops,
+                          model_flops_per_s=cell.model_flops / secs[1],
+                          share_of_bf16_peak=cell.model_flops / secs[1]
+                          / BF16_FLOPS, cache_gb=cache_gb,
+                          peak_mem_gb=_peak_gb(device))
+    res["launches"] = _launch_counts()
+    if any(res["launches"].values()):
+        raise AssertionError(f"LM cells launched a kernel: "
+                             f"{res['launches']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("diffusion_path_lm_cells", **res)
+    return res
+
+
+def _diffusion_parity(*, card="cuda", smoke=False) -> dict:
+    """(e) of the diffusion path: card against CPU in f32 on the same
+    seeded weights and inputs — unet-sd15 at full widths with
+    ``UNET_PARITY`` (one res block a stage, 128²: 16 × 16 latents) and
+    flux-dev at full width with ``FLUX_PARITY`` (1 double and 1 single
+    block, 256²: 256 image and 512 text tokens), or both ``SMOKE``
+    configs at their smoke shapes with ``smoke``; each through the
+    denoise cell's step (``ddim_step`` at gen_fast's stride, ``rf_step``
+    at its dt) within ``DIFF_TOL`` × max |CPU|."""
+    t_phase = time.perf_counter()
+    res = {}
+    for arch, (cut, res_px) in (("unet-sd15", UNET_PARITY),
+                                ("flux-dev", FLUX_PARITY)):
+        if smoke:
+            cut, res_px = {}, None
+        res[arch] = _diff_step_parity(arch, card, smoke=smoke, img_res=res_px,
+                                      cfg={**cut, "dtype": torch.float32})
+        res[arch].update(cut=cut, img_res=res_px)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("diffusion_path_parity", **res)
+    return res
+
+
+def _diff_step_parity(arch, card, *, smoke, img_res, cfg) -> dict:
+    """One gen_fast denoise step of ``arch`` at batch 1 on the card and on
+    the CPU from the same seeded f32 weights and inputs → its error,
+    asserted within ``DIFF_TOL`` × max |CPU|."""
+    from repro_torch.bridge import tree_map
+    cells = {dev: _diff_cell(arch, "gen_fast", device=dev, smoke=smoke,
+                             batch=1, img_res=img_res, cfg=cfg)
+             for dev in ("cpu", card)}
+    cpu_params = cells["cpu"].init_params()
+    card_params = tree_map(lambda t: t.to(card), cpu_params)
+    inputs = _diff_inputs(cells["cpu"], DIFF_SEED + 7,
+                          t_value=750 if arch == "unet-sd15" else 0.75)
+    with torch.no_grad():
+        want = cells["cpu"].run(cpu_params, None, inputs)
+        got = cells[card].run(card_params, None,
+                              {k: v.to(card) for k, v in inputs.items()})
+    err = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    del cpu_params, card_params
+    _free(card)
+    if not err <= DIFF_TOL * scale:
+        raise AssertionError(f"{arch}: card vs CPU {err} > {DIFF_TOL} x "
+                             f"{scale}")
+    return dict(latent=list(inputs["latent"].shape), max_abs_err=err,
+                max_abs_cpu=scale, rel_err=err / scale, tol=DIFF_TOL)
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: the same engine on the card and on the CPU
 # ---------------------------------------------------------------------------
 
@@ -5941,7 +6326,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "cnn_path", "control",
                                        "dense", "moe", "train",
-                                       "parity"),
+                                       "diffusion", "parity"),
                     help="run only the kernel phases (a quick check of a "
                          "kernel change), only the CNN path, only the "
                          "build, the control loop, overload, resilient "
@@ -5972,6 +6357,7 @@ def main(argv=None) -> int:
         phase_path_parity()
         _dense_parity()
         _moe_parity()
+        _diffusion_parity()
         emit("parity_done", cpu_threads=torch.get_num_threads(),
              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         return 0
@@ -5979,10 +6365,24 @@ def main(argv=None) -> int:
     if args.only == "cnn_path":
         phase_cnn_path()
         return 0
+    if args.only == "diffusion":
+        phase_diffusion_path()
+        from repro_torch.configs import get_arch
+        from repro_torch.models.transformer import init_lm
+        cfg = get_arch("deepseek-7b").full
+        params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+        phase_lm_cells(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        _diffusion_parity()
+        return 0
     build = start_build()
-    # the CNN path launches no kernel of the port: it runs on the card
-    # while nvcc compiles (its counts are still set to 0 and read)
+    # the CNN and diffusion paths launch no kernel of the port: they run
+    # on the card while nvcc compiles (their counts are still set to 0
+    # and read)
     cnn_launches = phase_cnn_path() if args.only is None else None
+    diff_res = phase_diffusion_path() if args.only is None else None
     phase_build(build)
     if args.only in ("dense", "train"):
         from repro_torch.configs import get_arch
@@ -6025,7 +6425,7 @@ def main(argv=None) -> int:
         res = _serving_phases(worker)
     finally:
         worker.stop()
-    _summary(smi, kres, sres, ires, pres, cnn_launches, *res)
+    _summary(smi, kres, sres, ires, pres, cnn_launches, diff_res, *res)
     return 0
 
 
@@ -6055,19 +6455,20 @@ def _serving_phases(worker: ParityWorker) -> tuple:
     fleet_res = phase_fleet_path(params, cfg)
     # the dense and MoE paths' card-vs-CPU checks run in the worker
     dense_res = phase_dense_path(params, cfg, parity=False)
-    # the training and MoE paths take most of the card's memory
+    # the LM cells, training and MoE paths take most of the card's memory
     worker.join()
+    lm_res = phase_lm_cells(params, cfg)
     train_res = phase_train_path(params, cfg)   # it updates the weights
     del params
     torch.cuda.empty_cache()
     moe_res = phase_moe_path(parity=False)
     return (main_res, spec_res, samp_res, tp_res, adapt_res, over_res,
-            res_res, fleet_res, dense_res, train_res, moe_res)
+            res_res, fleet_res, dense_res, lm_res, train_res, moe_res)
 
 
-def _summary(smi, kres, sres, ires, pres, cnn_launches, main_res, spec_res,
-             samp_res, tp_res, adapt_res, over_res, res_res, fleet_res,
-             dense_res, train_res, moe_res) -> None:
+def _summary(smi, kres, sres, ires, pres, cnn_launches, diff_res, main_res,
+             spec_res, samp_res, tp_res, adapt_res, over_res, res_res,
+             fleet_res, dense_res, lm_res, train_res, moe_res) -> None:
     """The ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and the
     result line."""
     # each summary row is the kernel's main-path shape: the decode step
@@ -6195,6 +6596,10 @@ def _summary(smi, kres, sres, ires, pres, cnn_launches, main_res, spec_res,
         r["train_path_launches"] = train_res["launches"][r["name"]]
         # the MoE path's (a)-(c) runs together; B4's rows must read 0
         r["moe_path_launches"] = moe_res["launches"][r["name"]]
+        # the diffusion path's (a)-(c) and (d), the LM cells; both failed
+        # if any was not 0
+        r["diffusion_path_launches"] = (diff_res["launches"][r["name"]]
+                                        + lm_res["launches"][r["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,4 +7,4 @@ FULL = CNNConfig(name="alexnet", img_res=227)
 SMOKE = FULL
 
 SPEC = ArchSpec(arch_id="alexnet", family="vision", full=FULL, smoke=SMOKE,
-                source="arXiv:1404.5997-era; paper")
+                source="arXiv:1404.5997-era; paper", assigned=False)

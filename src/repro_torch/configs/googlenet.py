@@ -7,4 +7,5 @@ FULL = CNNConfig(name="googlenet", img_res=224)
 SMOKE = FULL
 
 SPEC = ArchSpec(arch_id="googlenet", family="vision", full=FULL,
-                smoke=SMOKE, source="arXiv:1409.4842; paper")
+                smoke=SMOKE, source="arXiv:1409.4842; paper",
+                assigned=False)

@@ -9,4 +9,4 @@ SMOKE = ResNetConfig(name="r18-smoke", depths=(1, 1, 1, 1), width=8,
                      bottleneck=False, n_classes=10, img_res=32)
 
 SPEC = ArchSpec(arch_id="resnet-18", family="vision", full=FULL, smoke=SMOKE,
-                source="arXiv:1512.03385; paper")
+                source="arXiv:1512.03385; paper", assigned=False)

@@ -6,4 +6,4 @@ FULL = CNNConfig(name="vgg16", img_res=224)
 SMOKE = FULL
 
 SPEC = ArchSpec(arch_id="vgg16", family="vision", full=FULL, smoke=SMOKE,
-                source="arXiv:1409.1556; paper")
+                source="arXiv:1409.1556; paper", assigned=False)

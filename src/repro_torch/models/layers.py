@@ -663,8 +663,22 @@ def _rope_rows(rope, cache_index, s: int, device, cached: bool):
         tpos = torch.clamp(tpos, max=cos.shape[0] - 1)
         return cos[tpos], sin[tpos]                            # [B, S, ·]
     # ``dynamic_slice`` keeps the window inside the table
-    i0 = min(max(int(cache_index), 0), cos.shape[0] - s)
-    return cos[i0:i0 + s], sin[i0:i0 + s]
+    rows = _window(cache_index, s, cos.shape[0], device)
+    if isinstance(rows, slice):
+        return cos[rows], sin[rows]
+    return cos.index_select(0, rows), sin.index_select(0, rows)
+
+
+def _window(cache_index, s: int, t_max: int, device):
+    """The ``s`` positions from a scalar ``cache_index``, the start kept
+    inside ``[0, t_max - s]`` as ``dynamic_slice`` keeps it: a slice for
+    an int, an index tensor for a 0-dim tensor (no host read of it, so
+    a decode step needs no sync and runs on the meta device)."""
+    if torch.is_tensor(cache_index):
+        i0 = torch.clamp(cache_index.to(device).long(), 0, t_max - s)
+        return i0 + torch.arange(s, device=device)
+    i0 = min(max(int(cache_index), 0), t_max - s)
+    return slice(i0, i0 + s)
 
 
 def _write_dense(cache: Dict[str, torch.Tensor], kh: torch.Tensor,
@@ -711,9 +725,13 @@ def _write_dense(cache: Dict[str, torch.Tensor], kh: torch.Tensor,
                 (rows[:, None].expand(b, s), torch.clamp(t, max=t_max - 1)),
                 new)
     else:
-        i0 = min(max(int(cache_index), 0), t_max - s)
-        cache["k"][:, i0:i0 + s] = k_w
-        cache["v"][:, i0:i0 + s] = v_w
+        rows = _window(cache_index, s, t_max, kh.device)
+        if isinstance(rows, slice):
+            cache["k"][:, rows] = k_w
+            cache["v"][:, rows] = v_w
+        else:
+            cache["k"].index_copy_(1, rows, k_w)
+            cache["v"].index_copy_(1, rows, v_w)
     if kv_scales is not None:
         return (cache["k"].to(dtype) * ks.to(dtype)[None, None, :, None],
                 cache["v"].to(dtype) * vs.to(dtype)[None, None, :, None])
@@ -785,8 +803,8 @@ def attention(p: Sharded, x: torch.Tensor, *, n_heads: int, n_kv: int,
     if kv_cache is not None:
         kh, vh = _write_dense(kv_cache, kh, vh, cache_index, kv_scales,
                               x.dtype)
-        q_offset = (cache_index if torch.is_tensor(cache_index)
-                    and cache_index.ndim == 1 else int(cache_index))
+        q_offset = (cache_index.to(x.device) if torch.is_tensor(cache_index)
+                    else int(cache_index))
     if n_kv != n_heads:
         kh = torch.repeat_interleave(kh, n_heads // n_kv, dim=2)
         vh = torch.repeat_interleave(vh, n_heads // n_kv, dim=2)

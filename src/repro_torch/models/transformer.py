@@ -174,7 +174,7 @@ def layer_views(blocks: Union[Params, List[Params]]) -> List[Params]:
         return blocks
     unbound = tree_map(lambda v: v.unbind(0), blocks)
     return [tree_map(lambda t, i=i: t[i], unbound)
-            for i in range(_n_layers(blocks))]
+            for i in range(tree_leaves(blocks)[0].shape[0])]
 
 
 def remat_active(remat: bool, x: torch.Tensor, layer: Params) -> bool:

@@ -8,7 +8,7 @@ a buffer and gives the leaf none.  A stacked ``[L, ...]`` block leaf
 enters one layer at a time (the model's forward takes ``blocks`` as a
 list of per-layer trees, ``models.transformer.layer_views``), so each
 layer's gradient is added as soon as the backward pass produces it and
-freed: no second whole-model gradient tree is ever held, which is what
+freed (the MM-DiT's ``double`` and ``single`` groups alike): no second whole-model gradient tree is ever held, which is what
 lets deepseek-7b's 13.8 GB of bf16 gradients accumulate over
 microbatches in place.  A buffer in the parameter dtype accumulates in
 it (the reference's train cell); an f32 buffer accumulates in f32 (its
@@ -44,14 +44,17 @@ def _route(leaf: torch.Tensor, acc: torch.Tensor, index) -> torch.Tensor:
     return _Into.apply(leaf.detach().requires_grad_(), acc, index)
 
 
+_STACKED = ("blocks", "double", "single")
+
+
 def _routed(params: Dict[str, Any], acc: Dict[str, Any]) -> Dict[str, Any]:
-    """``params`` with every leaf routing its gradient into ``acc``; the
-    top-level ``"blocks"`` group (stacked ``[L, ...]`` leaves) becomes
-    a list of per-layer trees."""
+    """``params`` with every leaf routing its gradient into ``acc``; a
+    top-level group of stacked ``[L, ...]`` leaves (``_STACKED``)
+    becomes a list of per-layer trees."""
     out = {}
     for key, group in params.items():
         pl, al = tree_leaves(group), tree_leaves(acc[key])
-        if key == "blocks" and isinstance(group, dict):
+        if key in _STACKED and isinstance(group, dict):
             out[key] = [tree_unflatten(group, [_route(p, a, i)
                                                for p, a in zip(pl, al)])
                         for i in range(pl[0].shape[0])]

@@ -1437,3 +1437,16 @@ def test_card_checkpoint_restores_on_cpu_bit_for_bit(cuda, tmp_path):
     for a, b in zip(tree_leaves(back), tree_leaves(state)):
         assert a.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["unet-sd15", "flux-dev"])
+def test_diffusion_smoke_step_on_card_matches_cpu(cuda, arch):
+    """The SMOKE denoise cell's step (``ddim_step`` / ``rf_step``) in f32
+    on the card against the CPU on the same weights and inputs, within
+    ``chip_smoke.DIFF_TOL`` × max |CPU| (the check ``diffusion_path``'s
+    (e) runs at full width)."""
+    cs = _chip_smoke()
+    res = cs._diff_step_parity(arch, "cuda", smoke=True, img_res=None,
+                               cfg={"dtype": torch.float32})
+    assert res["max_abs_err"] <= cs.DIFF_TOL * res["max_abs_cpu"]

@@ -196,11 +196,48 @@ def test_shapes_and_input_specs_match_reference(arch, shape):
 
 
 def test_moe_and_serving_cells_raise():
+    """The MoE train cell (the reference's goes through ``moe_sharded``)
+    and the decode cell's sharding variants (A16) raise."""
     with pytest.raises(NotImplementedError, match="moe_sharded"):
         TS.build_cell("qwen3-moe-30b-a3b", "train_4k", smoke=True,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        TS.build_cell("deepseek-7b", "decode_32k", smoke=True, device="cpu")
+    for variant in ("zero1", "sseq"):
+        with pytest.raises(NotImplementedError, match="A16"):
+            TS.build_cell("deepseek-7b", "decode_32k", smoke=True,
+                          device="cpu", variant=variant)
+
+
+def test_decode_cell_builds_and_matches_reference():
+    """The decode_32k SMOKE cell: the reference's output shapes and
+    model flops, and its logits on the same weights, cache and token
+    within 1e-5 of the largest."""
+    mesh = make_host_mesh()
+    jcell = jbuild_cell("deepseek-7b", "decode_32k", mesh, smoke=True)
+    cell = TS.build_cell("deepseek-7b", "decode_32k", smoke=True,
+                         device="cpu")
+    assert cell.kind == "decode" and cell.model_flops == jcell.model_flops
+    params = cell.init_params()
+    cache = cell.init_state(params)
+    token = torch.tensor([3, 17], dtype=torch.int32)
+    index = torch.tensor(5, dtype=torch.int32)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree_unflatten(
+        jax.eval_shape(lambda: jcell.args[0]),
+        [v.numpy() for v in tree_leaves(params)]))
+    jcache = {k: jnp.asarray(v.numpy()) for k, v in cache.items()}
+    with mesh, mesh_context(mesh):
+        jlogits, jc = jax.jit(jcell.step_fn)(jparams, jcache,
+                                             jnp.asarray(token.numpy()),
+                                             jnp.asarray(index.numpy()))
+    logits, cache = cell.run(params, cache, {"token": token,
+                                             "cache_index": index})
+    assert logits.shape == jlogits.shape and logits.dtype == torch.float32
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: tuple(v.shape) for k, v in jc.items()}
+    want = np.asarray(jlogits)
+    np.testing.assert_allclose(logits.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(cache["k"].numpy(), np.asarray(jc["k"]),
+                               rtol=0, atol=1e-5)
 
 
 def _qat_trainer_run(pkg, cfg, params, tcfg_kw, batches):

@@ -105,7 +105,7 @@ def test_registry_has_the_vision_archs_with_the_references_numbers():
     """Five more archs, each FULL and SMOKE equal to the reference's field
     for field (dtype by name), registered as ``vision``."""
     assert set(ARCHS) <= set(list_archs())
-    assert len(list_archs()) == 12
+    assert len(list_archs()) == 14
     for arch in ARCHS:
         ts, js = tget(arch), jget(arch)
         assert ts.family == js.family == "vision"
